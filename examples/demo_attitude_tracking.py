@@ -7,9 +7,6 @@ closed-loop run on the pure-JAX dynamics).
 Runs on CPU; no simulator needed.
 """
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from mupe_tpu.controllers import attitude_control, make_mixer

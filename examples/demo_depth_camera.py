@@ -1,14 +1,10 @@
 #!/usr/bin/env python
 """Depth-camera demo: render an onboard depth image of a HideAndSeek-style
 scene as ASCII art (reference: sensors/camera.py viz path; here the
-analytic TPU-native renderer, mupe_tpu/sensors/depth.py).
+analytic JAX renderer, mupe_tpu/sensors/depth.py).
 
 Runs on CPU; no simulator needed.
 """
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from mupe_tpu.core import euler_to_quaternion

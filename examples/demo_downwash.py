@@ -4,10 +4,6 @@ downwash force each one receives (reference: examples/demo_downwash.py).
 
 Runs on CPU; no simulator needed.
 """
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from mupe_tpu.dynamics import downwash_forces, hover_state, make_params, step

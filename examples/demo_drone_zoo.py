@@ -1,10 +1,6 @@
 #!/usr/bin/env python
 """Drone zoo demo: spawn each model and hold hover for 1 s
 (reference: examples/demo_drone.py)."""
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from mupe_tpu.dynamics import DRONE_ZOO, hover_state, make_params, step

@@ -8,9 +8,6 @@ Runs on CPU with a small batch; no training, no simulator.
 import sys
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 

@@ -2,10 +2,6 @@
 """PID body-rate controller tracking demo
 (reference: examples/test_att_controller.py): command a roll-rate setpoint
 and print the tracking response."""
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 

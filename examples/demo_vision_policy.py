@@ -8,7 +8,7 @@ MLP branch).  The reference ships a camera (sensors/camera.py:40) and a
 MixedEncoder (networks.py:322-368) but never trains through them — this
 demo drives the full chain.
 
-Usage: python examples/demo_vision_policy.py  (~1-2 min on CPU, faster on TPU)
+Usage: python examples/demo_vision_policy.py  (~1-2 min on CPU, faster on a GPU)
 """
 import sys
 

@@ -1,6 +1,6 @@
-"""mupe_tpu — a TPU-native multi-UAV pursuit-evasion RL framework.
+"""mupe_tpu — a JAX multi-UAV pursuit-evasion RL framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 thu-uav/Multi-UAV-pursuit-evasion (OmniDrones-based MAPPO pursuit-evasion):
 
 - ``mupe_tpu.core``        — quaternion/SE(3) math and PRNG utilities (L0).
@@ -14,9 +14,10 @@ thu-uav/Multi-UAV-pursuit-evasion (OmniDrones-based MAPPO pursuit-evasion):
 - ``mupe_tpu.transforms``  — action/observation adapters (the torchrl-transform
   equivalents) as pure functions composed into the rollout (L4).
 - ``mupe_tpu.learning``    — MAPPO + TP-net, PPO family, encoders, distributions,
-  GAE, value normalizers in flax/optax; whole train step jitted (L5).
-- ``mupe_tpu.ops``         — Pallas TPU kernels for hot geometry ops with jnp
-  fallbacks.
+  GAE, value normalizers in JAX/optax (the PPO variant family on flax);
+  whole train step jitted (L5).
+- ``mupe_tpu.ops``         — the packed-row policy encoder of the PPO update
+  and farthest-point sampling, in jnp.
 - ``mupe_tpu.parallel``    — device-mesh sharding of the env/batch axis via
   ``jax.sharding`` (L7).
 - ``mupe_tpu.utils``       — config, logging, stats, checkpointing (L6).

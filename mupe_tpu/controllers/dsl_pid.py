@@ -11,10 +11,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..core import struct
 from ..core import quaternion_to_euler, quaternion_to_rotation_matrix
-from ..core.math import normalize
+from ..core.math import einsum, matmul, normalize
 
 P_COEFF_FOR = (0.4, 0.4, 1.25)
 I_COEFF_FOR = (0.05, 0.05, 0.05)
@@ -85,7 +85,9 @@ def dsl_pid_control(
     target_y = normalize(jnp.cross(target_z, target_x_c))
     target_x = jnp.cross(target_y, target_z)
     target_rot = jnp.stack([target_x, target_y, target_z], axis=-1)
-    err_mat = jnp.swapaxes(target_rot, -1, -2) @ rot - jnp.swapaxes(rot, -1, -2) @ target_rot
+    err_mat = matmul(jnp.swapaxes(target_rot, -1, -2), rot) - matmul(
+        jnp.swapaxes(rot, -1, -2), target_rot
+    )
     rot_error = jnp.stack(
         [err_mat[..., 2, 1], err_mat[..., 0, 2], err_mat[..., 1, 0]], axis=-1
     )
@@ -101,7 +103,7 @@ def dsl_pid_control(
     ) / PWM2RPM_SCALE
     mixer = jnp.asarray(MIXER_MATRIX, dtype)
     pwm = jnp.clip(
-        thrust_pwm + jnp.einsum("rk,...k->...r", mixer, target_torque), 0.0, 65535.0
+        thrust_pwm + einsum("rk,...k->...r", mixer, target_torque), 0.0, 65535.0
     )
     rpms = PWM2RPM_SCALE * pwm + PWM2RPM_CONST
     cmds = jnp.square(rpms / MAX_RPM) * 2.0 - 1.0

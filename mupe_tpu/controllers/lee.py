@@ -19,7 +19,7 @@ from ..core import (
     quaternion_to_euler,
     quaternion_to_rotation_matrix,
 )
-from ..core.math import normalize
+from ..core.math import einsum, matmul, normalize
 from .pid_rate import PIDRateState, pid_rate_control  # noqa: F401  (re-export)
 from ..dynamics.params import DRONE_ZOO
 
@@ -110,7 +110,7 @@ def _mix(mp: MixerParams, ang_acc: jnp.ndarray, thrust: jnp.ndarray) -> jnp.ndar
     """[ang_acc(3), thrust(1)] → normalized rotor cmds in [-1, 1]
     (lee_position_controller.py:200-203)."""
     angacc_thrust = jnp.concatenate([ang_acc, thrust], axis=-1)
-    cmd = angacc_thrust @ mp.mixer.T
+    cmd = matmul(angacc_thrust, mp.mixer.T)
     return (cmd / mp.max_thrusts) * 2.0 - 1.0
 
 
@@ -147,7 +147,8 @@ def lee_position_control(
     b2_des = normalize(jnp.cross(b3_des, b1_des))
     r_des = jnp.stack([jnp.cross(b2_des, b3_des), b2_des, b3_des], axis=-1)
     err_mat = 0.5 * (
-        jnp.swapaxes(r_des, -1, -2) @ rmat - jnp.swapaxes(rmat, -1, -2) @ r_des
+        matmul(jnp.swapaxes(r_des, -1, -2), rmat)
+        - matmul(jnp.swapaxes(rmat, -1, -2), r_des)
     )
     ang_error = jnp.stack(
         [err_mat[..., 2, 1], err_mat[..., 0, 2], err_mat[..., 1, 0]], axis=-1
@@ -183,13 +184,16 @@ def attitude_control(
     q_pitch = axis_angle_to_quaternion(
         target_pitch, jnp.broadcast_to(y, target_pitch.shape[:-1] + (3,))
     )
-    r_des = (
-        quaternion_to_rotation_matrix(q_yaw)
-        @ quaternion_to_rotation_matrix(q_roll)
-        @ quaternion_to_rotation_matrix(q_pitch)
+    r_des = matmul(
+        matmul(
+            quaternion_to_rotation_matrix(q_yaw),
+            quaternion_to_rotation_matrix(q_roll),
+        ),
+        quaternion_to_rotation_matrix(q_pitch),
     )
     err_mat = 0.5 * (
-        jnp.swapaxes(r_des, -1, -2) @ rmat - jnp.swapaxes(rmat, -1, -2) @ r_des
+        matmul(jnp.swapaxes(r_des, -1, -2), rmat)
+        - matmul(jnp.swapaxes(rmat, -1, -2), r_des)
     )
     ang_error = jnp.stack(
         [err_mat[..., 2, 1], err_mat[..., 0, 2], jnp.zeros_like(err_mat[..., 0, 0])],
@@ -199,8 +203,8 @@ def attitude_control(
         [jnp.zeros_like(target_yaw_rate), jnp.zeros_like(target_yaw_rate), target_yaw_rate],
         axis=-1,
     )
-    rel = jnp.swapaxes(r_des, -1, -2) @ rmat
-    rate_err = angvel_w - jnp.einsum("...ij,...j->...i", rel, rate_des)
+    rel = matmul(jnp.swapaxes(r_des, -1, -2), rmat)
+    rate_err = angvel_w - einsum("...ij,...j->...i", rel, rate_des)
     inv_i = 1.0 / mp.inertia
     ang_acc = (
         -ang_error * jnp.asarray(att_gain, quat.dtype) * inv_i

@@ -13,8 +13,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..core import struct
 from ..core import quat_rotate_inverse
 
 # Firmware PID constants (lee_position_controller.py:448-454)

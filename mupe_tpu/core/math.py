@@ -1,10 +1,27 @@
 """Small tensor-math helpers shared across layers (pure jax.numpy).
 
-TPU-native counterparts of omni_drones/utils/torch.py:40-57,130,261-268.
+Counterparts of omni_drones/utils/torch.py:40-57,130,261-268.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """`a @ b` at full float32 precision.
+
+    The controllers' 3×3 and 4×4 products must not run in TF32 (about three
+    decimal digits), which is what a GPU's default float32 precision
+    allows; on the CPU the result is unchanged."""
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
+
+def einsum(subscripts: str, *operands: jnp.ndarray) -> jnp.ndarray:
+    """`jnp.einsum` at full float32 precision (see `matmul`)."""
+    return jnp.einsum(subscripts, *operands, precision=_HIGHEST)
 
 
 def off_diag(a: jnp.ndarray) -> jnp.ndarray:

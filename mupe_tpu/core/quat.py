@@ -1,6 +1,6 @@
 """Quaternion math (w, x, y, z convention), pure jax.numpy.
 
-TPU-native counterpart of the reference's torch quaternion suite
+JAX counterpart of the reference's torch quaternion suite
 (reference: omni_drones/utils/torch.py:60-258).  All functions broadcast over
 arbitrary leading batch dimensions — no manual reshaping is needed, which lets
 them be used freely inside ``vmap``/``scan`` without the reference's

@@ -1,4 +1,4 @@
-"""Dragon: articulated multi-link drone, TPU-native compliant-joint model.
+"""Dragon: articulated multi-link drone, JAX compliant-joint model.
 
 Counterpart of the reference's `Dragon(MultirotorBase)`
 (omni_drones/robots/drone/dragon.py:45-244): a chain of `num_links` rigid
@@ -9,7 +9,7 @@ velocity-driven (apply_action, dragon.py:155-188), and a flat state vector
 [pos, rot, vel6, heading, up | 2·throttle−1 | gimbal/π | link-joint/π]
 per link (get_state, dragon.py:191-214).
 
-TPU-first re-design: the reference leans on PhysX's articulation solver;
+JAX re-design: the reference leans on PhysX's articulation solver;
 here every link is an independent 6-DoF rigid body in MAXIMAL coordinates
 ([E, L]-batched, same semi-implicit Euler as `quadrotor.step`), and the
 D6 joints become compliant constraints — a stiff point-to-point
@@ -30,8 +30,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..core import struct
 from ..core import (
     quat_axis,
     quat_conjugate,

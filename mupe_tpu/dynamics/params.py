@@ -13,7 +13,8 @@ from typing import Any, Dict
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..core import struct
 
 # ---------------------------------------------------------------------------
 # Drone zoo: physical constants transcribed from the reference asset YAMLs.

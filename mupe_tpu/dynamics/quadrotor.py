@@ -21,8 +21,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..core import struct
 from ..core import quat_axis, quat_integrate, quat_rotate, quat_rotate_inverse
 from .params import QuadrotorParams, RigidBodyCfg
 

@@ -1,6 +1,6 @@
 """TransportationGroup — N drones carrying a slung payload via rigid bars.
 
-TPU-native counterpart of the reference assembly
+JAX counterpart of the reference assembly
 (omni_drones/robots/assembly/transportation_group.py:19-145 +
 examples/demo_transport.py): four drones at (±0.5, ±0.5, 0) in the group
 frame, a 2 kg box payload hanging 1.1 m below the group origin, each drone
@@ -22,8 +22,8 @@ import dataclasses
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..core import struct
 from ..core.quat import quat_mul, quat_rotate
 from .params import DRONE_ZOO, QuadrotorParams, make_params
 from .quadrotor import DroneState, RigidBodyCfg, hover_state

@@ -1,6 +1,6 @@
 """Environment core: pure reset/step functions over explicit state pytrees.
 
-TPU-native replacement for the reference's ``IsaacEnv`` torchrl base
+JAX replacement for the reference's ``IsaacEnv`` torchrl base
 (omni_drones/envs/isaac_env.py:47-389).  Key differences, by design:
 
 - No simulator process, no views layer: the physics state *is* the env state
@@ -19,7 +19,8 @@ from typing import Any, Callable, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..core import struct
 
 
 @struct.dataclass

@@ -1,6 +1,6 @@
 """Adaptive Environment Generator (AEG) task buffer — on device.
 
-TPU-native re-design of the reference `GenBuffer`
+JAX re-design of the reference `GenBuffer`
 (omni_drones/envs/hide_and_seek/hideandseek_envgen.py:209-377): a particle
 buffer of tasks of intermediate difficulty.  The reference keeps Python
 lists / numpy arrays on the host and calls DGL's CUDA FPS; here every buffer
@@ -18,9 +18,9 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from ..ops.fps import farthest_point_sampling_auto as farthest_point_sampling
+from ..core import struct
+from ..ops.fps import farthest_point_sampling
 from .placement import (
     Grid,
     continuous_to_grid,

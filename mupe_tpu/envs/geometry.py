@@ -3,10 +3,7 @@
 Counterparts of the reference geometry helpers
 (omni_drones/envs/hide_and_seek/hideandseek.py:47-103 LoS blocking,
 :755-778 k-nearest-cylinder observation).  These are the per-step hot
-[env × agent × cylinder] ops, implemented as pure jnp: XLA already fuses
-them well (the whole 4096-arena env step is ~10 ms, <3% of an iteration),
-so no Pallas kernel is warranted here — the Pallas effort goes to the
-PPO-update encoder (`mupe_tpu/ops/fused_encoder.py`), which dominates.
+[env × agent × cylinder] ops, implemented as pure jnp that XLA fuses.
 """
 from __future__ import annotations
 
@@ -90,11 +87,10 @@ def k_nearest_cylinders(
     inactive = cylinder_pos[..., 2] < 0.0                          # [E, C]
     mdist = jnp.linalg.norm(rpos, axis=-1) - cylinder_size         # [E, n, C]
 
-    # Selection WITHOUT top_k/gather: TPU gathers are scalar-core bound and
-    # dominate the env step at these tiny shapes ([E,n,5]→k=3).  Instead,
+    # Selection WITHOUT top_k/gather at these tiny shapes ([E,n,5]→k=3):
     # rank each cylinder by pairwise comparison (ties broken by index, which
     # reproduces top_k's stable order) and select with a one-hot sum — pure
-    # VPU elementwise + reduce over C, fully fused by XLA.
+    # elementwise + reduce over C, fully fused by XLA.
     di = mdist[..., :, None]                                       # [E,n,C,1]
     dj = mdist[..., None, :]                                       # [E,n,1,C]
     lt = (dj < di) | ((dj == di) & (jnp.arange(c)[:, None] > jnp.arange(c)[None, :]))

@@ -16,14 +16,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..controllers import PIDRateState
-from ..core import euler_to_quaternion
+from ..core import euler_to_quaternion, struct
 from ..dynamics import DroneState, RigidBodyCfg, hover_state, make_params
 from ..dynamics import step as dynamics_step
 from ..learning.tp_net import TPNet, denormalize_predictions, normalize_groundtruth
@@ -617,30 +615,9 @@ class HideAndSeek:
 
     def _tp_predict(self, tp_params, history: jnp.ndarray) -> jnp.ndarray:
         """TP forward + denormalization → predicted world positions
-        [E, fut, 3] (hideandseek.py:832-837).
-
-        The fused Pallas TP-LSTM kernel (ops/tp_lstm.py) is NOT used here
-        by default: at rollout batch (4096 rows/step) the per-step launch
-        costs more than the fused-XLA recurrence saves — measured e2e
-        927K → 914K env-steps/s when enabled (MUPE_TP_ROLLOUT_KERNEL=1).
-        The kernel wins only at the update's 240K-window batch."""
+        [E, fut, 3] (hideandseek.py:832-837)."""
         cfg = self.cfg
-        use_kernel = (
-            os.environ.get("MUPE_TP_ROLLOUT_KERNEL", "0") == "1"
-            and jax.default_backend() == "tpu"
-        )
-        if use_kernel:
-            from ..ops.tp_lstm import TPLSTMSpec, tp_apply
-
-            spec = TPLSTMSpec(
-                input_dim=history.shape[-1],
-                hidden=self.tp_net.hidden_dim,
-                t_steps=history.shape[-2],
-                out_dim=self.tp_net.output_dim,
-            )
-            pred_norm = tp_apply(spec, tp_params, history)
-        else:
-            pred_norm = self.tp_net.apply(tp_params, history)  # [E, 3·fut]
+        pred_norm = self.tp_net.apply(tp_params, history)  # [E, 3·fut]
         return denormalize_predictions(
             pred_norm.reshape(cfg.num_envs, cfg.future_prediction_step, 3),
             cfg.arena_size,

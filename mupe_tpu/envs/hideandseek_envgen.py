@@ -24,7 +24,6 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .base import register_env
 from .genbuffer import (

@@ -13,10 +13,10 @@ from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from typing import Any, Optional
 
+from ..core import struct
 from ..controllers import PIDRateState
 from ..core import euler_to_quaternion
 from ..dynamics import DroneState, RigidBodyCfg, hover_state, make_params

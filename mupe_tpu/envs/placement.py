@@ -1,6 +1,6 @@
 """On-device scene sampling: occupancy-grid placement with bounded iteration.
 
-TPU-native replacement for the reference's CPU rejection sampling
+JAX replacement for the reference's CPU rejection sampling
 (omni_drones/envs/hide_and_seek/hideandseek.py:576-607
 `rejection_sampling_random_cylinder`, and
 omni_drones/envs/hide_and_seek/placement.py).  The data-dependent

@@ -4,9 +4,9 @@ Counterpart of omni_drones/learning/utils/gae.py:27-74 — identical
 recursion.  GAE is a first-order linear recurrence
 (gae_t = δ_t + γλ·nd_t · gae_{t+1}), so instead of T sequential steps it
 runs as `lax.associative_scan` over the affine maps (c, d) ↦ c·y + d —
-log₂(T) fused passes, the TPU-native formulation (the time axis is only
-64 but each sequential step is a tiny kernel; the scan form removes the
-64-deep dependency chain from the update program's critical path).
+log₂(T) fused passes (the time axis is only 64 but each sequential step
+is a tiny kernel; the scan form removes the 64-deep dependency chain from
+the update program's critical path).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """MAPPO (CTDE PPO) + TP-net training, fully jitted.
 
-TPU-native re-design of the reference `MAPPOPolicy`
+JAX re-design of the reference `MAPPOPolicy`
 (omni_drones/learning/mappo.py:54-513):
 
 - shared or per-agent actors: per-agent params are a stacked pytree applied
@@ -23,19 +23,19 @@ standard (Σw)²/Σw² estimate.
 from __future__ import annotations
 
 import dataclasses
-import os
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
-from flax import struct
 
+from ..core import struct
+from ..ops.fused_encoder import EncoderSpec, extract_leaves, pack_obs, reference_apply
 from .gae import compute_gae
 from .modules.distributions import _LOG_SQRT_2PI, DiagGaussianHead, Gaussian
-from .modules.networks import make_encoder
+from .modules.networks import Module, dense, dense_params, entity_group_order, make_encoder
 from .tp_net import TPNet
 from .valuenorm import ValueNorm1
 
@@ -67,32 +67,25 @@ class MAPPOCfg:
     huber_delta: float = 10.0
     future_prediction_step: int = 5
     window_step: int = 1
-    # compute dtype for encoder trunks ("bfloat16" | "float32"); params,
+    # compute dtype for encoder trunks ("bfloat16" | "float32"): bf16
+    # matmuls halve memory traffic and run on the tensor cores; params,
     # heads, losses, and optimizer state stay float32 (mixed precision)
     compute_dtype: str = "bfloat16"
-    # fuse the encoder+head fwd/bwd into single Pallas kernels inside the
-    # PPO update (TPU only; dict obs + PartialAttentionEncoder + shared
-    # actor).  See mupe_tpu/ops/fused_encoder.py.
+    # PPO update layout (dict obs + PartialAttentionEncoder + shared actor
+    # + default modules): True runs actor and critic in ONE value_and_grad
+    # over the same packed obs rows (`_update_joint*`, ops/fused_encoder.py);
+    # False runs the separate actor and critic updates on obs dicts.  Same
+    # gradients; which is faster on the GPU is not measured yet.
     use_fused_encoder: bool = True
-    # compute the PPO loss + per-sample output grads INSIDE the forward
-    # kernel (fused_pair_ppo_grads) instead of jax.value_and_grad through
-    # the pair kernel.  Measured on-chip at production shapes: 4.21 vs
-    # 3.87 ms/minibatch — the XLA loss chain is already cheap (0.52 ms of
-    # glue total), so the in-kernel variant's extra output DMA doesn't pay
-    # off.  Kept as a validated alternative; default off.
-    use_inkernel_loss: bool = False
-    # use the fused pair kernel for rollout-time act() as well (one launch
-    # per env step for actor mean + value over the shared packed rows).
-    # Measured on-chip: 836.9K vs 838.0K env-steps/s — XLA's fused flax
-    # forward matches the kernel at rollout batch sizes (12K rows/step),
-    # so the simpler path stays default.
+    # rollout-time act(): True packs the obs rows once and runs actor mean
+    # and value over them (`_fused_pair_apply`); False applies actor and
+    # critic to the obs dict separately.  Same outputs.
     use_fused_act: bool = False
     # emit the rollout scan's per-step outputs directly as packed wide
-    # rows ([T·E, D] with reserved advantage/return lanes filled in after
-    # GAE) so train_op's big pack-concat disappears and each minibatch is
-    # a row gather + free lane slices — no unpack→pack_obs roundtrip.
-    # Semantics identical (parity-tested); applies under the same
-    # conditions as the fused joint update.
+    # rows ([T·E, D] with reserved advantage/return columns filled in after
+    # GAE) so each minibatch is one row gather + column slices instead of
+    # a pack after the rollout.  Same semantics (parity-tested); applies
+    # under the same conditions as use_fused_encoder.
     pack_rollout: bool = True
     # ---- long-horizon safeguards (ALL opt-in; defaults preserve the
     # reference's semantics, omni_drones/learning/mappo.py:271-324).
@@ -119,16 +112,15 @@ class MAPPOCfg:
     # target_kl: once a minibatch's approx KL (k3 estimator,
     # mean(ratio−1−log ratio)) exceeds this, freeze actor+critic updates
     # for the rest of the iteration (PPO early stop, Schulman's spinningup
-    # recipe).  Composes with use_inkernel_loss too: the kernel emits a
-    # _SUM_LOGR column and _update_joint_direct derives the same k3
-    # approx_kl from it.
+    # recipe).
     target_kl: Optional[float] = None
     # min_log_std: hard floor on the policy's log_std parameter, applied
     # after every optimizer step — the bluntest collapse guard.
     min_log_std: Optional[float] = None
 
 
-class Actor(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Actor(Module):
     """Encoder → DiagGaussian head (mappo.py:525-551 make_ppo_actor)."""
 
     action_dim: int
@@ -137,16 +129,29 @@ class Actor(nn.Module):
     obs_is_dict: bool
     dtype: Any = None
 
-    @nn.compact
-    def __call__(self, obs) -> Gaussian:
-        feats = make_encoder(
+    def _encoder(self):
+        return make_encoder(
             self.hidden_units, self.attn_encoder, self.obs_is_dict, self.dtype
-        )(obs)
+        )
+
+    def params(self, key, obs):
+        enc = self._encoder()
+        k_enc, k_head = jax.random.split(key)
+        p_enc = enc.params(k_enc, obs)
+        feat = jax.eval_shape(enc.forward, p_enc, obs).shape[-1]
+        head = DiagGaussianHead(self.action_dim).params(k_head, feat)
+        return {enc.scope: p_enc, "DiagGaussianHead_0": head}
+
+    def forward(self, p, obs) -> Gaussian:
+        enc = self._encoder()
         # head in float32: action log-probs feed PPO importance ratios
-        return DiagGaussianHead(self.action_dim)(feats.astype(jnp.float32))
+        return DiagGaussianHead(self.action_dim).forward(
+            p["DiagGaussianHead_0"], enc.forward(p[enc.scope], obs)
+        )
 
 
-class Critic(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Critic(Module):
     """Encoder → value head (mappo.py:553-570 make_critic)."""
 
     out_dim: int
@@ -155,14 +160,25 @@ class Critic(nn.Module):
     obs_is_dict: bool
     dtype: Any = None
 
-    @nn.compact
-    def __call__(self, obs) -> jnp.ndarray:
-        feats = make_encoder(
+    def _encoder(self):
+        return make_encoder(
             self.hidden_units, self.attn_encoder, self.obs_is_dict, self.dtype
-        )(obs)
-        return nn.Dense(
-            self.out_dim, kernel_init=nn.initializers.orthogonal(0.01)
-        )(feats.astype(jnp.float32))
+        )
+
+    def params(self, key, obs):
+        enc = self._encoder()
+        k_enc, k_head = jax.random.split(key)
+        p_enc = enc.params(k_enc, obs)
+        feat = jax.eval_shape(enc.forward, p_enc, obs).shape[-1]
+        head = dense_params(
+            k_head, feat, self.out_dim, jax.nn.initializers.orthogonal(0.01)
+        )
+        return {enc.scope: p_enc, "Dense_0": head}
+
+    def forward(self, p, obs) -> jnp.ndarray:
+        enc = self._encoder()
+        feats = enc.forward(p[enc.scope], obs).astype(jnp.float32)
+        return dense(p["Dense_0"], feats)
 
 
 @struct.dataclass
@@ -203,12 +219,12 @@ class RolloutBatch:
 
 @dataclasses.dataclass(frozen=True)
 class PackMeta:
-    """Static lane layout of one packed rollout row (one (t, env) sample).
+    """Static column layout of one packed rollout row (one (t, env) sample).
 
     [ obs: n_agents × (entity groups in entity_group_order) | action n·A |
-      logp n | value n | advantages n | returns n ] — obs lanes first and
+      logp n | value n | advantages n | returns n ] — obs columns first and
     agent-major so `rows[:, :obs_cols].reshape(m·n, obs_dim)` is exactly the
-    `pack_obs` layout the fused kernels consume, with zero data movement.
+    `pack_obs` layout `reference_apply` consumes, with zero data movement.
     """
 
     names: Tuple[str, ...]
@@ -267,7 +283,7 @@ def compute_pack_meta(obs_example, n_agents: int, action_dim: int) -> PackMeta:
 def pack_rollout_row(
     meta: PackMeta, obs, action, logp, value
 ) -> jnp.ndarray:
-    """One step's fields → [E, total] wide rows (adv/ret lanes zeroed)."""
+    """One step's fields → [E, total] wide rows (adv/ret columns zeroed)."""
     e = action.shape[0]
     n = meta.n_agents
     parts = [obs[nm].reshape(e, n, -1) for nm in meta.names]
@@ -295,8 +311,8 @@ class MAPPOPolicy:
         obs_is_dict: bool,
         tp_input_dim: Optional[int] = None,
         state_is_dict: bool = True,
-        actor_module: Optional[nn.Module] = None,
-        critic_module: Optional[nn.Module] = None,
+        actor_module: Optional[Any] = None,
+        critic_module: Optional[Any] = None,
     ):
         self.cfg = cfg
         self.n_agents = n_agents
@@ -304,9 +320,11 @@ class MAPPOPolicy:
         self.obs_is_dict = obs_is_dict
         dtype = jnp.dtype(cfg.compute_dtype)
         self._default_modules = actor_module is None and critic_module is None
-        # modules are injectable so the PPO variant family (privileged
-        # branches, TConv history encoders, PointNet, transformer tokens —
-        # reference learning/ppo/*) can reuse this update machinery
+        # modules are injectable (anything with init(key, x) and
+        # apply(params, x), flax linen included) so the PPO variant family
+        # (privileged branches, TConv history encoders, PointNet,
+        # transformer tokens — reference learning/ppo/*) can reuse this
+        # update machinery
         self.actor = actor_module or Actor(
             action_dim=action_dim,
             hidden_units=cfg.hidden_units,
@@ -348,9 +366,8 @@ class MAPPOPolicy:
                 optax.adamw(lr, weight_decay=wd) if wd > 0.0 else optax.adam(lr)
             )
             # optax.flatten: run clip+adam on ONE concatenated vector instead
-            # of ~30 tiny per-leaf kernels — the update runs 64-128 optimizer
-            # steps per training iteration, and the per-leaf op storm costs
-            # ~0.7ms each on TPU (measured), ~3x the flattened version
+            # of ~30 tiny per-leaf ops — the update runs 64-128 optimizer
+            # steps per training iteration
             return optax.flatten(
                 optax.chain(optax.clip_by_global_norm(cfg.max_grad_norm), tx)
             )
@@ -440,7 +457,8 @@ class MAPPOPolicy:
         return None
 
     def _fused_ok(self, obs) -> bool:
-        """Whether the Pallas fused encoder applies to this configuration."""
+        """Whether the joint actor+critic update over packed obs rows
+        applies to this configuration."""
         return (
             self.cfg.use_fused_encoder
             and self.cfg.share_actor
@@ -450,92 +468,32 @@ class MAPPOPolicy:
             and self._default_modules
         )
 
-    def _fused_apply(self, params, obs, head_dim: int) -> jnp.ndarray:
-        """Fused encoder+head forward: [..., head_dim] (grads flow through
-        extract_leaves back into the flax param tree)."""
-        from ..ops.fused_encoder import (
-            EncoderSpec,
-            extract_leaves,
-            fused_encoder_head,
-            pack_obs,
-        )
-        from .modules.networks import entity_group_order
-
-        names = entity_group_order(obs.keys())
-        groups = tuple((obs[n].shape[-2], obs[n].shape[-1]) for n in names)
-        spec = EncoderSpec(groups=groups, head_dim=head_dim)
-        leaves = extract_leaves(spec, params, names)
-        x, lead = pack_obs(spec, obs, names)
-        out = fused_encoder_head(spec, leaves, x)
-        return out.reshape(lead + (head_dim,))
+    def _spec(self, groups) -> EncoderSpec:
+        return EncoderSpec(groups=groups, dtype=jnp.dtype(self.cfg.compute_dtype).name)
 
     def _fused_pair_apply(self, actor_params, critic_params, obs):
-        """Actor mean + critic value over the same rows via ONE Pallas kernel
-        per direction (ops/fused_encoder.py pair path) — halves the kernel
-        launches in the PPO minibatch loop and lets Mosaic overlap the two
-        networks' independent instruction chains."""
-        from ..ops.fused_encoder import (
-            EncoderSpec,
-            extract_leaves,
-            fused_pair_encoder_head,
-            pack_obs,
-        )
-        from .modules.networks import entity_group_order
-
+        """Actor mean + critic value over the same obs rows, packed once."""
         names = entity_group_order(obs.keys())
         groups = tuple((obs[n].shape[-2], obs[n].shape[-1]) for n in names)
-        spec_a = EncoderSpec(groups=groups, head_dim=self.action_dim)
-        spec_c = EncoderSpec(groups=groups, head_dim=1)
-        leaves_a = extract_leaves(spec_a, actor_params, names)
-        leaves_c = extract_leaves(spec_c, critic_params, names)
-        x, lead = pack_obs(spec_a, obs, names)
-        out_a, out_c = fused_pair_encoder_head(
-            spec_a, spec_c, leaves_a, leaves_c, x
-        )
+        spec = self._spec(groups)
+        x, lead = pack_obs(spec, obs, names)
+        out_a = reference_apply(spec, extract_leaves(actor_params, names), x)
+        out_c = reference_apply(spec, extract_leaves(critic_params, names), x)
         return (
             out_a.reshape(lead + (self.action_dim,)),
             out_c.reshape(lead + (1,)),
         )
 
-    def _fused_pair_apply_rows(
-        self, actor_params, critic_params, x, meta: PackMeta,
-        m: Optional[int] = None, flat: bool = False,
-    ):
+    def _fused_pair_apply_rows(self, actor_params, critic_params, x, meta: PackMeta):
         """Pair forward over PRE-PACKED obs rows (cfg.pack_rollout): the
-        minibatch lane slice is already in pack_obs layout, so no concat.
-        `flat=True` returns the kernels' native ([s, A], [s]) shapes —
-        the lane-dense loss path (_update_joint_flat)."""
-        from ..ops.fused_encoder import (
-            EncoderSpec,
-            extract_leaves,
-            fused_pair_encoder_head,
-        )
+        minibatch column slice is already in pack_obs layout.  Returns
+        ([s, A] mean, [s] value)."""
+        spec = self._spec(meta.groups)
+        out_a = reference_apply(spec, extract_leaves(actor_params, meta.names), x)
+        out_c = reference_apply(spec, extract_leaves(critic_params, meta.names), x)
+        return out_a, out_c[:, 0]
 
-        spec_a = EncoderSpec(groups=meta.groups, head_dim=self.action_dim)
-        spec_c = EncoderSpec(groups=meta.groups, head_dim=1)
-        leaves_a = extract_leaves(spec_a, actor_params, meta.names)
-        leaves_c = extract_leaves(spec_c, critic_params, meta.names)
-        out_a, out_c = fused_pair_encoder_head(
-            spec_a, spec_c, leaves_a, leaves_c, x
-        )
-        if flat:
-            return out_a, out_c[:, 0]
-        lead = (m, meta.n_agents)
-        return (
-            out_a.reshape(lead + (self.action_dim,)),
-            out_c.reshape(lead + (1,)),
-        )
-
-    def _actor_dist(self, actor_params, obs, fused: bool = False) -> Gaussian:
-        # The Pallas path wins for the update's large fwd+bwd minibatches;
-        # the per-step rollout batches are small enough that XLA's fused
-        # forward is faster (measured), so act() keeps the flax path.
-        if fused and self.cfg.share_actor and self._fused_ok(obs):
-            mean = self._fused_apply(actor_params, obs, self.action_dim)
-            log_std = actor_params["params"]["DiagGaussianHead_0"]["log_std"]
-            return Gaussian(
-                mean=mean, log_std=jnp.broadcast_to(log_std, mean.shape)
-            )
+    def _actor_dist(self, actor_params, obs) -> Gaussian:
         if self.cfg.share_actor:
             return self.actor.apply(actor_params, obs)
         # per-agent stacked params, vmapped over the agent axis
@@ -546,15 +504,11 @@ class MAPPOPolicy:
             actor_params, obs
         )
 
-    def value_op(
-        self, ts: MAPPOState, obs, state=None, fused: bool = False
-    ) -> jnp.ndarray:
+    def value_op(self, ts: MAPPOState, obs, state=None) -> jnp.ndarray:
         """V(s) per agent → [..., n, 1] (mappo.py:221-232)."""
         if self.cfg.critic_input == "state":
             v = self.critic.apply(ts.critic_params, state)  # [..., n]
             return v[..., None]
-        if fused and self._fused_ok(obs):
-            return self._fused_apply(ts.critic_params, obs, 1)
         return self.critic.apply(ts.critic_params, obs)  # [..., n, 1]
 
     def act(
@@ -572,8 +526,6 @@ class MAPPOPolicy:
             and self.cfg.critic_input == "obs"
             and self._fused_ok(obs)
         ):
-            # one pair-kernel launch per env step instead of two ~60-op
-            # XLA forwards (actor + critic share the packed obs rows)
             mean, value = self._fused_pair_apply(
                 ts.actor_params, ts.critic_params, obs
             )
@@ -597,12 +549,8 @@ class MAPPOPolicy:
         t_len, e = batch.reward.shape[:2]
         n_ag = batch.reward.shape[2]
 
-        next_value = self.value_op(ts, batch.last_obs, batch.last_state, fused=True)
-        # GAE/normalization on FLAT [T, E·n] lanes: the [T, E, n, 1]
-        # shapes keep 1 real lane per row (TPU pads to 128), so every
-        # fused pass over the prep chain reads ~2 orders of magnitude
-        # more bytes than the data holds (same pathology as the loss
-        # chain — see _update_joint_flat)
+        next_value = self.value_op(ts, batch.last_obs, batch.last_state)
+        # GAE and normalization on flat [T, E·n] arrays
         values = ts.value_norm.denormalize(
             batch.value.reshape(t_len, e * n_ag)
         )
@@ -641,8 +589,7 @@ class MAPPOPolicy:
         pack_meta = None
         if batch.packed is not None:
             # rollout already emitted packed rows; fill the reserved
-            # advantage/return lanes in place (XLA aliases the updates —
-            # no buffer-sized copy) and slice minibatches lane-wise
+            # advantage/return columns and slice minibatches column-wise
             pack_meta = compute_pack_meta(
                 batch.last_obs, self.n_agents, self.action_dim
             )
@@ -659,10 +606,8 @@ class MAPPOPolicy:
                 m = rows.shape[0]
                 pm = pack_meta
                 return {
-                    # pack_obs layout rows, fed straight to the kernels;
-                    # per-sample fields FLAT [m·n(, A)] — lane-dense, see
-                    # _update_joint_flat (the (m, n, 1) shapes pad 1-4
-                    # lanes to 128 on TPU)
+                    # pack_obs layout rows; per-sample fields flat
+                    # [m·n(, A)] (see _update_joint_flat)
                     "obs_rows": rows[:, : pm.obs_cols].reshape(
                         m * n, pm.obs_dim
                     ),
@@ -700,10 +645,8 @@ class MAPPOPolicy:
             )
 
             # Pack every per-sample field into ONE [B, D] buffer so each
-            # minibatch is a single wide-row gather.  Separate narrow gathers
-            # (rows of 1-35 floats) are scalar-core bound on TPU and cost ~75ms
-            # per epoch at this batch size; one 128+-lane-wide row gather is
-            # DMA-efficient (~2000x faster, measured).
+            # minibatch is a single wide-row gather instead of one narrow
+            # gather per field.
             leaves, treedef = jax.tree_util.tree_flatten(flat)
             sizes = [int(np.prod(l.shape[1:])) for l in leaves]
             shapes = [l.shape[1:] for l in leaves]
@@ -732,18 +675,10 @@ class MAPPOPolicy:
             def mb_body(carry, idx):
                 ts, stop = carry
                 mb = unpack(packed[idx])
-                if use_joint and cfg.use_inkernel_loss:
-                    new_ts, info = self._update_joint_direct(
-                        ts, mb, pack_meta=pack_meta
-                    )
-                elif use_joint and pack_meta is not None:
-                    new_ts, info = self._update_joint_flat(
-                        ts, mb, pack_meta
-                    )
+                if pack_meta is not None:
+                    new_ts, info = self._update_joint_flat(ts, mb, pack_meta)
                 elif use_joint:
-                    new_ts, info = self._update_joint(
-                        ts, mb, pack_meta=pack_meta
-                    )
+                    new_ts, info = self._update_joint(ts, mb)
                 else:
                     new_ts, info_a = self._update_actor(ts, mb)
                     new_ts, info_c = self._update_critic(new_ts, mb)
@@ -790,13 +725,13 @@ class MAPPOPolicy:
             ts = ts.replace(entropy_coef=new_coef)
             metrics["entropy_coef"] = new_coef
         if pack_meta is not None:
-            act_lanes = packed[
+            act_cols = packed[
                 :,
                 pack_meta.off_action : pack_meta.off_action
                 + pack_meta.n_agents * pack_meta.action_dim,
             ].reshape(b, pack_meta.n_agents, pack_meta.action_dim)
             metrics["action_norm"] = jnp.mean(
-                jnp.linalg.norm(act_lanes, axis=-1)
+                jnp.linalg.norm(act_cols, axis=-1)
             )
         else:
             metrics["action_norm"] = jnp.mean(
@@ -810,7 +745,7 @@ class MAPPOPolicy:
         cfg = self.cfg
 
         def loss_fn(actor_params):
-            dist = self._actor_dist(actor_params, mb["obs"], fused=True)
+            dist = self._actor_dist(actor_params, mb["obs"])
             logp_new = dist.log_prob(mb["action"])[..., None]
             entropy = dist.entropy()[..., None]
             # clamp the log-ratio before exp: one outlier sample with
@@ -850,15 +785,12 @@ class MAPPOPolicy:
             },
         )
 
-    # ---------------- joint actor+critic update (fused pair kernel)
-    def _update_joint(
-        self, ts: MAPPOState, mb, pack_meta: Optional[PackMeta] = None
-    ) -> Tuple[MAPPOState, Dict]:
-        """One value_and_grad over (actor, critic) with a shared pair
-        kernel.  The losses are additive and touch disjoint parameters, so
+    # ---------------- joint actor+critic update (shared packed obs rows)
+    def _update_joint(self, ts: MAPPOState, mb) -> Tuple[MAPPOState, Dict]:
+        """One value_and_grad over (actor, critic) on the same packed obs
+        rows.  The losses are additive and touch disjoint parameters, so
         the gradients are identical to the sequential `_update_actor` +
-        `_update_critic` path (which the reference runs, mappo.py:446-461);
-        fusing them halves the encoder kernel launches per minibatch."""
+        `_update_critic` path (which the reference runs, mappo.py:446-461)."""
         cfg = self.cfg
 
         def huber(pred, target):
@@ -866,15 +798,9 @@ class MAPPOPolicy:
 
         def loss_fn(params):
             actor_params, critic_params = params
-            if pack_meta is not None:
-                mean, values = self._fused_pair_apply_rows(
-                    actor_params, critic_params, mb["obs_rows"],
-                    pack_meta, mb["action"].shape[0],
-                )
-            else:
-                mean, values = self._fused_pair_apply(
-                    actor_params, critic_params, mb["obs"]
-                )
+            mean, values = self._fused_pair_apply(
+                actor_params, critic_params, mb["obs"]
+            )
             log_std = actor_params["params"]["DiagGaussianHead_0"]["log_std"]
             dist = Gaussian(
                 mean=mean, log_std=jnp.broadcast_to(log_std, mean.shape)
@@ -945,74 +871,62 @@ class MAPPOPolicy:
             },
         )
 
-    # ---------------- joint update, flat lane-dense loss (packed rows)
-    def _update_joint_flat(
-        self, ts: MAPPOState, mb, pack_meta: PackMeta
-    ) -> Tuple[MAPPOState, Dict]:
-        """`_update_joint` for the packed-rollout path with the loss chain
-        on FLAT [s] vectors.  The (m, n, 1)-shaped variant keeps 1-4 real
-        lanes per row, which TPU pads to 128 — every fused elementwise
-        pass over the PPO chain reads ~32x the real bytes (the
-        divide/multiply/convert fusions measured ~8 ms of the iteration
-        at 4096x64).  1-D [s] arrays tile dense.  Identical math and
-        metrics; gradients are identical because the loss is a mean over
-        the same per-sample terms."""
-        import math as _math
-
+    # ---------------- joint update, flat loss (packed rows)
+    def joint_loss(self, params, mb, pack_meta: PackMeta, entropy_coef):
+        """PPO-clip + clipped-Huber loss of `_update_joint` over one packed
+        minibatch, with per-sample terms as flat [s] vectors (mb fields as
+        built by train_op's `unpack`).  Returns (total, aux)."""
         cfg = self.cfg
 
         def huber(pred, target):
             return jnp.mean(optax.huber_loss(pred, target, delta=cfg.huber_delta))
 
-        s = mb["logp"].shape[0]
         act = mb["action"]                       # [s, A]
-        logp_old = mb["logp"]                    # [s]
-        adv = mb["advantages"]                   # [s]
-        b_values = mb["value"]                   # [s]
-        b_returns = mb["returns"]                # [s]
+        actor_params, critic_params = params
+        mean, values = self._fused_pair_apply_rows(
+            actor_params, critic_params, mb["obs_rows"], pack_meta
+        )                                        # [s, A], [s]
+        log_std = actor_params["params"]["DiagGaussianHead_0"]["log_std"]
+        # diag-Gaussian log-prob (distributions.Gaussian.log_prob)
+        z = (act - mean) * jnp.exp(-log_std)
+        logp_new = jnp.sum(
+            -0.5 * jnp.square(z) - log_std - _LOG_SQRT_2PI, axis=-1
+        )                                        # [s]
+        # state-independent entropy: per-sample value is constant
+        entropy = jnp.sum(log_std) + act.shape[-1] * 0.5 * (
+            1.0 + math.log(2.0 * math.pi)
+        )
+        # clamp the log-ratio before exp (see _update_joint)
+        ratio = jnp.exp(jnp.clip(logp_new - mb["logp"], -20.0, 20.0))
+        adv = mb["advantages"]
+        surr1 = ratio * adv
+        surr2 = jnp.clip(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+        policy_loss = -jnp.mean(jnp.minimum(surr1, surr2) * self.action_dim)
+        entropy_loss = -entropy
+        b_values, b_returns = mb["value"], mb["returns"]
+        clipped = b_values + jnp.clip(
+            values - b_values, -cfg.clip_param, cfg.clip_param
+        )
+        value_loss = jnp.maximum(
+            huber(values, b_returns), huber(clipped, b_returns)
+        )
+        explained_var = 1.0 - jnp.mean(
+            jnp.square(values - b_returns)
+        ) / (jnp.var(b_returns) + 1e-8)
+        total = policy_loss + entropy_loss * entropy_coef + value_loss
+        return total, (
+            policy_loss, entropy_loss, ratio, value_loss, explained_var
+        )
 
-        def loss_fn(params):
-            actor_params, critic_params = params
-            mean, values = self._fused_pair_apply_rows(
-                actor_params, critic_params, mb["obs_rows"], pack_meta,
-                flat=True,
-            )                                    # [s, A], [s]
-            log_std = actor_params["params"]["DiagGaussianHead_0"]["log_std"]
-            # diag-Gaussian log-prob (distributions.Gaussian.log_prob)
-            z = (act - mean) * jnp.exp(-log_std)
-            logp_new = jnp.sum(
-                -0.5 * jnp.square(z) - log_std - _LOG_SQRT_2PI, axis=-1
-            )                                    # [s]
-            # state-independent entropy: per-sample value is constant
-            entropy = jnp.sum(log_std) + act.shape[-1] * 0.5 * (
-                1.0 + _math.log(2.0 * _math.pi)
-            )
-            # clamp the log-ratio before exp (see _update_joint)
-            ratio = jnp.exp(jnp.clip(logp_new - logp_old, -20.0, 20.0))
-            surr1 = ratio * adv
-            surr2 = jnp.clip(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
-            policy_loss = -jnp.mean(jnp.minimum(surr1, surr2) * self.action_dim)
-            entropy_loss = -entropy
-            clipped = b_values + jnp.clip(
-                values - b_values, -cfg.clip_param, cfg.clip_param
-            )
-            value_loss = jnp.maximum(
-                huber(values, b_returns), huber(clipped, b_returns)
-            )
-            explained_var = 1.0 - jnp.mean(
-                jnp.square(values - b_returns)
-            ) / (jnp.var(b_returns) + 1e-8)
-            total = (
-                policy_loss
-                + entropy_loss * self._entropy_coef(ts)
-                + value_loss
-            )
-            return total, (
-                policy_loss, entropy_loss, ratio, value_loss, explained_var
-            )
-
-        (_, aux), (ga, gc) = jax.value_and_grad(loss_fn, has_aux=True)(
-            (ts.actor_params, ts.critic_params)
+    def _update_joint_flat(
+        self, ts: MAPPOState, mb, pack_meta: PackMeta
+    ) -> Tuple[MAPPOState, Dict]:
+        """`_update_joint` for the packed-rollout path (`joint_loss`).
+        Identical math and metrics; gradients are identical because the
+        loss is a mean over the same per-sample terms."""
+        (_, aux), (ga, gc) = jax.value_and_grad(self.joint_loss, has_aux=True)(
+            (ts.actor_params, ts.critic_params), mb, pack_meta,
+            self._entropy_coef(ts),
         )
         policy_loss, entropy_loss, ratio, value_loss, explained_var = aux
         upd_a, new_opt_a = self.actor_tx.update(ga, ts.actor_opt, ts.actor_params)
@@ -1044,118 +958,6 @@ class MAPPOPolicy:
             },
         )
 
-    # ---------------- joint update, direct-grad kernel path (TPU)
-    def _update_joint_direct(
-        self,
-        ts: MAPPOState,
-        mb,
-        interpret: bool = False,
-        pack_meta: Optional[PackMeta] = None,
-    ) -> Tuple[MAPPOState, Dict]:
-        """Same math as `_update_joint`, but the loss and its per-sample
-        output gradients are computed INSIDE the Pallas forward kernel
-        (ops/fused_encoder.fused_pair_ppo_grads), so the whole minibatch
-        step is two kernel launches + the optimizer — none of the XLA
-        loss-chain ops (~60 small kernels/minibatch, measured ~1 ms)."""
-        import math as _math
-
-        from ..ops.fused_encoder import (
-            _SUM_MIN12, _SUM_RATIO, _SUM_RATIO2, _SUM_H1, _SUM_H2,
-            _SUM_SQERR, _SUM_RET, _SUM_RET2, _SUM_LOGR,
-            EncoderSpec, PPOLossCfg, extract_leaves, fused_pair_ppo_grads,
-            fused_pair_ppo_grads_fwdloss, pack_obs, rebuild_grads,
-        )
-        from .modules.networks import entity_group_order
-
-        cfg = self.cfg
-        if pack_meta is not None:
-            names = list(pack_meta.names)
-            groups = pack_meta.groups
-            x = mb["obs_rows"]
-        else:
-            obs = mb["obs"]
-            names = entity_group_order(obs.keys())
-            groups = tuple(
-                (obs[n].shape[-2], obs[n].shape[-1]) for n in names
-            )
-        spec_a = EncoderSpec(groups=groups, head_dim=self.action_dim)
-        spec_c = EncoderSpec(groups=groups, head_dim=1)
-        la = extract_leaves(spec_a, ts.actor_params, names)
-        lc = extract_leaves(spec_c, ts.critic_params, names)
-        if pack_meta is None:
-            x, _ = pack_obs(spec_a, obs, names)
-        s = x.shape[0]
-        log_std = ts.actor_params["params"]["DiagGaussianHead_0"]["log_std"]
-        loss_cfg = PPOLossCfg(
-            clip_param=cfg.clip_param,
-            huber_delta=cfg.huber_delta,
-            action_dim=self.action_dim,
-            n_rows=s,
-        )
-        # launch strategy: "fwdloss" (default) = fwd+loss kernel at the
-        # big fwd tile + the standard split bwd launches; "agrad" = the
-        # fwd+loss+actor-bwd combined kernel (tile-capped at 448)
-        grads_fn = (
-            fused_pair_ppo_grads
-            if os.environ.get("MUPE_DIRECT_MODE", "fwdloss") == "agrad"
-            else fused_pair_ppo_grads_fwdloss
-        )
-        dla, dls, dlc, sums = grads_fn(
-            spec_a, spec_c, loss_cfg, la, lc, log_std, x,
-            mb["action"].reshape(s, self.action_dim),
-            mb["logp"].reshape(s, 1),
-            mb["advantages"].reshape(s, 1),
-            mb["value"].reshape(s, 1),
-            mb["returns"].reshape(s, 1),
-            interpret=interpret,
-        )
-        # entropy bonus: state-independent Gaussian ⇒ its gradient wrt
-        # log_std is the constant −entropy_coef per dim
-        dls = dls - self._entropy_coef(ts)
-        grads_a = rebuild_grads(spec_a, ts.actor_params, names, dla)
-        grads_a["params"]["DiagGaussianHead_0"]["log_std"] = dls
-        grads_c = rebuild_grads(spec_c, ts.critic_params, names, dlc)
-
-        upd_a, new_opt_a = self.actor_tx.update(grads_a, ts.actor_opt, ts.actor_params)
-        new_actor = self._apply_log_std_floor(
-            optax.apply_updates(ts.actor_params, upd_a)
-        )
-        upd_c, new_opt_c = self.critic_tx.update(grads_c, ts.critic_opt, ts.critic_params)
-        new_critic = optax.apply_updates(ts.critic_params, upd_c)
-
-        inv_s = 1.0 / s
-        policy_loss = -(self.action_dim * inv_s) * sums[_SUM_MIN12]
-        entropy = jnp.sum(log_std) + self.action_dim * 0.5 * (
-            1.0 + _math.log(2.0 * _math.pi)
-        )
-        ess = jnp.square(sums[_SUM_RATIO]) / (sums[_SUM_RATIO2] * s)
-        h1 = sums[_SUM_H1] * inv_s
-        h2 = sums[_SUM_H2] * inv_s
-        value_loss = jnp.maximum(h1, h2)
-        ret_var = sums[_SUM_RET2] * inv_s - jnp.square(sums[_SUM_RET] * inv_s)
-        explained_var = 1.0 - (sums[_SUM_SQERR] * inv_s) / (ret_var + 1e-8)
-        return (
-            ts.replace(
-                actor_params=new_actor,
-                actor_opt=new_opt_a,
-                critic_params=new_critic,
-                critic_opt=new_opt_c,
-            ),
-            {
-                "policy_loss": policy_loss,
-                "actor_grad_norm": optax.global_norm(grads_a),
-                "entropy": entropy,
-                "ESS": ess,
-                "value_loss": value_loss,
-                "critic_grad_norm": optax.global_norm(grads_c),
-                "explained_var": explained_var,
-                # k3 estimator from the in-kernel sums (enables target_kl)
-                "approx_kl": (
-                    sums[_SUM_RATIO] - loss_cfg.n_rows - sums[_SUM_LOGR]
-                ) * inv_s,
-            },
-        )
-
     # ---------------- critic update (mappo.py:326-352)
     def _update_critic(self, ts: MAPPOState, mb) -> Tuple[MAPPOState, Dict]:
         cfg = self.cfg
@@ -1165,7 +967,7 @@ class MAPPOPolicy:
 
         def loss_fn(critic_params):
             ts_ = ts.replace(critic_params=critic_params)
-            values = self.value_op(ts_, mb["obs"], mb.get("state"), fused=True)
+            values = self.value_op(ts_, mb["obs"], mb.get("state"))
             b_values = mb["value"]
             b_returns = mb["returns"]
             clipped = b_values + jnp.clip(
@@ -1194,11 +996,10 @@ class MAPPOPolicy:
         )
 
     # ---------------- TP-net update (mappo.py:407-443, 252-269)
-    def _update_tp(
-        self, ts: MAPPOState, batch: RolloutBatch, key: jnp.ndarray
-    ) -> Tuple[MAPPOState, Dict]:
-        cfg = self.cfg
-        w = cfg.future_prediction_step
+    def tp_windows(self, batch: RolloutBatch):
+        """Supervision windows of the TP update: (inputs [W·E, H, F],
+        targets [W, E, w·3], valid [W, E, 1])."""
+        w = self.cfg.future_prediction_step
         # tp_gt: [T, E, 3] → windows of future gt: for t, gt[t+1 .. t+w]
         t_len = batch.tp_gt.shape[0]
         n_windows = t_len - w
@@ -1213,56 +1014,28 @@ class MAPPOPolicy:
         win_done = done_t[idx]                  # [W, w, E]
         valid = (~jnp.any(win_done, axis=1)) & batch.tp_done[:n_windows, :, 0].astype(bool)
         valid = valid.astype(jnp.float32)[..., None]  # [W, E, 1]
+        return inputs.reshape((-1,) + inputs.shape[2:]), targets, valid
 
-        # On TPU the LSTM fwd+bwd runs as one Pallas kernel per direction
-        # (ops/tp_lstm.py): h/c stay in VMEM across the 10 steps instead
-        # of round-tripping ~2 GB of step activations through HBM —
-        # measured 15.8 ms → ~4 ms of the 290 ms iteration.  Off-TPU the
-        # flax path is kept bit-exact (CPU goldens unchanged).
-        use_tp_kernel = (
-            os.environ.get("MUPE_TP_KERNEL", "1") == "1"
-            and jax.default_backend() == "tpu"
-        )
-        if use_tp_kernel:
-            from ..ops.tp_lstm import TPLSTMSpec, tp_apply, tp_apply_t
+    def tp_loss(self, tp_params, inputs, targets, valid):
+        """Masked MSE of the TP predictions over the update's windows."""
+        pred = self.tp_net.apply(tp_params, inputs).reshape(targets.shape)
+        se = jnp.square(pred - targets) * valid
+        return jnp.sum(se) / (jnp.sum(valid) * targets.shape[-1] + 1e-8)
 
-            tp_spec = TPLSTMSpec(
-                input_dim=inputs.shape[-1],
-                hidden=self.tp_net.hidden_dim,
-                t_steps=inputs.shape[-2],
-                out_dim=self.tp_net.output_dim,
-            )
-            # "t" (default): batch-in-lanes transposed kernels — hidden 64
-            # lives in SUBLANES (granularity 8) so gates slice at their
-            # true offsets and the matmuls run unpadded, ~3.6x fewer MACs
-            # than the lane-padded layout (see ops/tp_lstm.py)
-            tp_kernel_fn = (
-                tp_apply
-                if os.environ.get("MUPE_TP_LAYOUT", "t") == "lanes"
-                else tp_apply_t
-            )
-
-        def loss_fn(tp_params):
-            flat_in = inputs.reshape((-1,) + inputs.shape[2:])
-            if use_tp_kernel:
-                pred = tp_kernel_fn(tp_spec, tp_params, flat_in)
-                pred = pred.reshape(targets.shape)
-            else:
-                pred = self.tp_net.apply(tp_params, flat_in).reshape(
-                    targets.shape
-                )
-            se = jnp.square(pred - targets) * valid
-            return jnp.sum(se) / (jnp.sum(valid) * targets.shape[-1] + 1e-8)
+    def _update_tp(
+        self, ts: MAPPOState, batch: RolloutBatch, key: jnp.ndarray
+    ) -> Tuple[MAPPOState, Dict]:
+        windows = self.tp_windows(batch)
 
         def epoch_body(carry, _):
             tp_params, tp_opt = carry
-            loss, grads = jax.value_and_grad(loss_fn)(tp_params)
+            loss, grads = jax.value_and_grad(self.tp_loss)(tp_params, *windows)
             updates, tp_opt = self.tp_tx.update(grads, tp_opt, tp_params)
             tp_params = optax.apply_updates(tp_params, updates)
             return (tp_params, tp_opt), loss
 
         (tp_params, tp_opt), losses = jax.lax.scan(
-            epoch_body, (ts.tp_params, ts.tp_opt), None, length=cfg.tp_epochs
+            epoch_body, (ts.tp_params, ts.tp_opt), None, length=self.cfg.tp_epochs
         )
         return (
             ts.replace(tp_params=tp_params, tp_opt=tp_opt),

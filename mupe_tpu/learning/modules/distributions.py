@@ -2,18 +2,20 @@
 
 Counterparts of omni_drones/learning/modules/distributions.py: `DiagGaussian`
 (:66-82, the MAPPO default), `IndependentNormal` (:139), tanh-squashed normal
-(:217), `IndependentBeta` (:148), and multi-categorical (:286-343).  Heads are
-flax modules producing distribution parameters; sampling/log-prob/entropy are
-stateless functions so they can run inside scans and grad transforms.
+(:217), `IndependentBeta` (:148), and multi-categorical (:286-343).  The MAPPO head is
+a plain init/apply module producing distribution parameters (its flax
+counterpart for the PPO family is `linen.DiagGaussianHead`);
+sampling/log-prob/entropy are stateless functions so they can run inside
+scans and grad transforms.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -47,30 +49,39 @@ class Gaussian(NamedTuple):
         return jnp.sum(jnp.broadcast_to(per_dim, self.mean.shape), axis=-1)
 
 
-class DiagGaussianHead(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DiagGaussianHead:
     """Linear mean + state-independent log-std (distributions.py:66-82).
 
     Mean weights initialized xavier-uniform with gain 0.01, zero bias,
     log_std starts at 0 — matching the reference's `init_` + zeros.
+    Float32 throughout: action log-probs feed the PPO importance ratios.
     """
 
     action_dim: int
     gain: float = 0.01
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> Gaussian:
-        mean = nn.Dense(
-            self.action_dim,
-            kernel_init=nn.initializers.variance_scaling(
-                # xavier_uniform with gain g ⇒ scale = g² · (fan_avg variance 1)
-                self.gain**2, "fan_avg", "uniform"
-            ),
-            bias_init=nn.initializers.zeros,
-        )(x)
-        log_std = self.param(
-            "log_std", nn.initializers.zeros, (self.action_dim,)
-        )
-        return Gaussian(mean=mean, log_std=jnp.broadcast_to(log_std, mean.shape))
+    def init(self, key, x):
+        return {"params": self.params(key, x.shape[-1])}
+
+    def apply(self, variables, x) -> Gaussian:
+        return self.forward(variables["params"], x)
+
+    def params(self, key, in_dim: int):
+        # xavier_uniform with gain g ⇒ scale = g² · (fan_avg variance 1)
+        init = jax.nn.initializers.variance_scaling(self.gain**2, "fan_avg", "uniform")
+        return {
+            "Dense_0": {
+                "kernel": init(key, (in_dim, self.action_dim), jnp.float32),
+                "bias": jnp.zeros((self.action_dim,), jnp.float32),
+            },
+            "log_std": jnp.zeros((self.action_dim,), jnp.float32),
+        }
+
+    def forward(self, p, x) -> Gaussian:
+        d = p["Dense_0"]
+        mean = jnp.dot(x.astype(jnp.float32), d["kernel"]) + d["bias"]
+        return Gaussian(mean=mean, log_std=jnp.broadcast_to(p["log_std"], mean.shape))
 
 
 class TanhGaussian(NamedTuple):

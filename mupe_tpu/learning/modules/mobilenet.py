@@ -1,12 +1,12 @@
 """MobileNetV3 feature backbones in flax — the reference's vision branch.
 
-TPU-native counterpart of `MobileNetV3Small`/`MobilNetV3Large`
+JAX counterpart of `MobileNetV3Small`/`MobilNetV3Large`
 (omni_drones/learning/modules/networks.py:371-428), which wrap torchvision's
 pretrained backbone with `track_running_stats=False` (i.e. BatchNorm always
 normalizes by the CURRENT batch statistics — no running averages).  Here the
 architecture is implemented directly (Howard et al. 2019, table 1/2):
 
-- NHWC layout (TPU conv-native), bf16-friendly: convs run in the module
+- NHWC layout (channels-last), bf16-friendly: convs run in the module
   dtype with f32 norm statistics;
 - `_BatchStatsNorm` reproduces track_running_stats=False exactly: learned
   scale/bias, normalization by per-batch statistics, NO mutable state — the

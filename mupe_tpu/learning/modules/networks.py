@@ -1,58 +1,120 @@
-"""Flax encoders: MLP, entity embeddings, and attention encoders.
+"""Encoders of the MAPPO main path as plain init/apply functions.
 
-TPU-native counterparts of the reference encoder family
-(omni_drones/learning/modules/networks.py): `MLP` (:49-71), `SplitEmbedding`
-(:125-163), `RelationEncoder` (:171-206), `PartialRelationEncoder` (:210-246),
-`PartialAttentionEncoder` (:250-313, the encoder used by the MAPPO config
-cfg/algo/mappo.yaml:33), and `LFF` learnable Fourier features (:88-122).
+Counterparts of the reference encoder family
+(omni_drones/learning/modules/networks.py): `MLP` (:49-71), the flat-spec
+`FlatEncoder` (learning/common.py:88-102), and `PartialAttentionEncoder`
+(:250-313, the encoder of cfg/algo/mappo.yaml:33).  The relation encoders and
+the vision branch are flax modules in `linen.py`.
+
+Every module is a frozen dataclass with `init(key, x) -> {"params": tree}`
+and `apply({"params": tree}, x)`.  The param trees keep the paths, shapes
+and initializer families of the earlier flax modules, so checkpoints and
+code that addresses leaves by path (`extract_leaves`, ".../log_std") are
+unchanged.
 
 Dict observations ({"state_self": [..,1,D₁], "state_others": [..,k,D₂], ...})
-replace the reference's CompositeSpec tensordicts; iteration order is the
-dict's insertion order, matching the reference's spec order.
+replace the reference's CompositeSpec tensordicts.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Sequence
 
+import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
-# Compute dtype for encoder trunks: bf16 matmuls/activations on TPU halve
-# HBM traffic and double MXU throughput; params stay float32 (flax
-# `param_dtype` default) so optimizer state and checkpoints are full
-# precision.  Heads (action mean, value) upcast back to float32.
-DEFAULT_COMPUTE_DTYPE = jnp.bfloat16
+from ...ops.fused_encoder import EncoderSpec, _encode, encoder_leaves, pack_obs
+
+_inits = jax.nn.initializers
 
 
-class MLP(nn.Module):
-    """Linear→activation(→LayerNorm) stack (networks.py:49-71)."""
+class Module:
+    """`init`/`apply` over `{"params": tree}` from a subclass's
+    `params(key, x) -> tree` and `forward(tree, x)`."""
+
+    def init(self, key, x) -> Dict[str, Any]:
+        return {"params": self.params(key, x)}
+
+    def apply(self, variables, x):
+        return self.forward(variables["params"], x)
+
+
+def dense_params(key, in_dim: int, out_dim: int, kernel_init=None) -> dict:
+    """{"kernel", "bias"} of a flax-style Dense (lecun-normal, zero bias)."""
+    kernel_init = kernel_init or _inits.lecun_normal()
+    return {
+        "kernel": kernel_init(key, (in_dim, out_dim), jnp.float32),
+        "bias": jnp.zeros((out_dim,), jnp.float32),
+    }
+
+
+def dense(p, x, dtype=None):
+    """x @ kernel + bias, computed in `dtype` (default: x's float type)."""
+    dt = dtype or jnp.result_type(x, jnp.float32)
+    return jnp.dot(x.astype(dt), p["kernel"].astype(dt)) + p["bias"].astype(dt)
+
+
+def layer_norm_params(dim: int) -> dict:
+    return {"scale": jnp.ones((dim,), jnp.float32), "bias": jnp.zeros((dim,), jnp.float32)}
+
+
+def layer_norm(p, x, dtype=None, eps: float = 1e-6):
+    """flax LayerNorm numerics: float32 statistics, output in `dtype`."""
+    xf = x.astype(jnp.float32)
+    m = jnp.mean(xf, axis=-1, keepdims=True)
+    var = jnp.maximum(jnp.mean(jnp.square(xf), axis=-1, keepdims=True) - m * m, 0.0)
+    y = (xf - m) * jax.lax.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.astype(dtype or jnp.result_type(x, jnp.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class MLP(Module):
+    """Linear→ELU(→LayerNorm) stack (networks.py:49-71)."""
 
     hidden_units: Sequence[int]
     layer_norm: bool = True
     dtype: Any = None
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        for units in self.hidden_units:
-            x = nn.Dense(units, dtype=self.dtype)(x)
-            x = nn.elu(x)
+    def params(self, key, x):
+        p, in_dim = {}, x.shape[-1]
+        for i, (units, k) in enumerate(
+            zip(self.hidden_units, jax.random.split(key, len(self.hidden_units)))
+        ):
+            p[f"Dense_{i}"] = dense_params(k, in_dim, units)
             if self.layer_norm:
-                x = nn.LayerNorm(dtype=self.dtype)(x)
+                p[f"LayerNorm_{i}"] = layer_norm_params(units)
+            in_dim = units
+        return p
+
+    def forward(self, p, x):
+        for i in range(len(self.hidden_units)):
+            x = jax.nn.elu(dense(p[f"Dense_{i}"], x, self.dtype))
+            if self.layer_norm:
+                x = layer_norm(p[f"LayerNorm_{i}"], x, self.dtype)
         return x
 
 
-class FlatEncoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class FlatEncoder(Module):
     """LayerNorm(input) → MLP — the flat-spec path of make_encoder
     (learning/common.py:88-102)."""
 
     hidden_units: Sequence[int] = (256, 256, 256)
     layer_norm: bool = True
     dtype: Any = None
+    scope = "FlatEncoder_0"
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        x = nn.LayerNorm(dtype=self.dtype)(x)
-        return MLP(self.hidden_units, self.layer_norm, dtype=self.dtype)(x)
+    def _mlp(self):
+        return MLP(tuple(self.hidden_units), self.layer_norm, self.dtype)
+
+    def params(self, key, x):
+        return {
+            "LayerNorm_0": layer_norm_params(x.shape[-1]),
+            "MLP_0": self._mlp().params(key, x),
+        }
+
+    def forward(self, p, x):
+        return self._mlp().forward(p["MLP_0"], layer_norm(p["LayerNorm_0"], x, self.dtype))
 
 
 def entity_group_order(keys) -> list:
@@ -72,237 +134,82 @@ def entity_group_order(keys) -> list:
     return self_keys + rest
 
 
-class SplitEmbedding(nn.Module):
-    """Per-key linear embedding of entity groups, concatenated along the
-    entity axis and LayerNormed (networks.py:125-163)."""
+@dataclasses.dataclass(frozen=True)
+class PartialAttentionEncoder(Module):
+    """Single-head attention with the first self-entity token as the only
+    query, followed by a residual feed-forward block (networks.py:250-313).
+
+    obs: dict of (..., k_i, d_i) entity groups → (..., embed_dim) float32.
+    The math is `ops.fused_encoder._encode` over the packed rows."""
 
     embed_dim: int = 128
-    layer_norm: bool = True
-    dtype: Any = None
-
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        embeds = [
-            nn.Dense(self.embed_dim, name=f"embed_{key}", dtype=self.dtype)(
-                obs[key]
-            )
-            for key in entity_group_order(obs.keys())
-        ]
-        x = jnp.concatenate(embeds, axis=-2)
-        if self.layer_norm:
-            x = nn.LayerNorm(dtype=self.dtype)(x)
-        return x
-
-
-class PartialAttentionEncoder(nn.Module):
-    """MHA with the self-entity token as the only query (networks.py:250-313).
-
-    obs: dict of (..., k_i, d_i) entity groups; the first `query_len` tokens
-    (the "state_self" group) attend over all tokens, followed by a residual
-    feed-forward block; output is the mean over query tokens.
-    """
-
-    embed_dim: int = 128
-    num_heads: int = 1
     dim_feedforward: int = 128
-    query_len: int = 1
     dtype: Any = None
+    scope = "PartialAttentionEncoder_0"
 
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        x = SplitEmbedding(self.embed_dim, dtype=self.dtype)(obs)
-        q = x[..., : self.query_len, :]
-        attn = nn.MultiHeadDotProductAttention(
-            num_heads=self.num_heads,
-            qkv_features=self.embed_dim,
-            name="attn",
-            dtype=self.dtype,
-        )(q, x)
-        # norm_first=False path (networks.py:296-297)
-        y = nn.LayerNorm(dtype=self.dtype)(q + attn)
-        ff = nn.Dense(self.dim_feedforward, dtype=self.dtype)(y)
-        ff = nn.gelu(ff)
-        ff = nn.Dense(self.embed_dim, dtype=self.dtype)(ff)
-        y = nn.LayerNorm(dtype=self.dtype)(y + ff)
-        return jnp.mean(y, axis=-2)
+    def spec(self, obs):
+        names = entity_group_order(obs.keys())
+        groups = tuple((obs[n].shape[-2], obs[n].shape[-1]) for n in names)
+        dtype = jnp.dtype(self.dtype or jnp.float32).name
+        return EncoderSpec(groups=groups, dtype=dtype), names
 
+    def params(self, key, obs):
+        spec, names = self.spec(obs)
+        e, ff = self.embed_dim, self.dim_feedforward
+        ks = iter(jax.random.split(key, len(names) + 6))
+        embed = {
+            f"embed_{n}": dense_params(next(ks), d, e)
+            for n, (_, d) in zip(names, spec.groups)
+        }
+        embed["LayerNorm_0"] = layer_norm_params(e)
 
-class RelationEncoder(nn.Module):
-    """f(Σ_ij g(a_i ⊕ a_j)) over all entity pairs (networks.py:171-206)."""
+        def proj():  # [in, heads=1, head_dim] query/key/value layout
+            p = dense_params(next(ks), e, e)
+            return {"kernel": p["kernel"].reshape(e, 1, e), "bias": p["bias"].reshape(1, e)}
 
-    embed_dim: int = 72
-    f_units: Sequence[int] = (256, 128)
-    dtype: Any = None
+        attn = {"query": proj(), "key": proj(), "value": proj()}
+        out = dense_params(next(ks), e, e)
+        attn["out"] = {"kernel": out["kernel"].reshape(1, e, e), "bias": out["bias"]}
+        return {
+            "SplitEmbedding_0": embed,
+            "attn": attn,
+            "LayerNorm_0": layer_norm_params(e),
+            "Dense_0": dense_params(next(ks), e, ff),
+            "Dense_1": dense_params(next(ks), ff, e),
+            "LayerNorm_1": layer_norm_params(e),
+        }
 
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        a = SplitEmbedding(self.embed_dim, dtype=self.dtype)(obs)
-        ai = jnp.repeat(a[..., :, None, :], a.shape[-2], axis=-2)
-        aj = jnp.swapaxes(ai, -2, -3)
-        aij = jnp.concatenate([ai, aj], axis=-1)
-        g = MLP((self.f_units[0],), dtype=self.dtype)(aij)
-        g = nn.LayerNorm(dtype=self.dtype)(g)
-        pooled = jnp.sum(g, axis=(-3, -2))
-        return MLP(tuple(self.f_units), dtype=self.dtype)(pooled)
-
-
-class PartialRelationEncoder(nn.Module):
-    """f(Σ_j g(a_0 ⊕ a_j)), j ≠ 0 (networks.py:210-246)."""
-
-    embed_dim: int = 72
-    f_units: Sequence[int] = (256, 128)
-    dtype: Any = None
-
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        a = SplitEmbedding(self.embed_dim, dtype=self.dtype)(obs)
-        ai, aj = a[..., :1, :], a[..., 1:, :]
-        aij = jnp.concatenate(
-            [jnp.broadcast_to(ai, aj.shape[:-1] + (ai.shape[-1],)), aj], axis=-1
-        )
-        g = MLP((self.f_units[0],), dtype=self.dtype)(aij)
-        g = nn.LayerNorm(dtype=self.dtype)(g)
-        pooled = jnp.sum(g, axis=-2)
-        return MLP(tuple(self.f_units), dtype=self.dtype)(pooled)
+    def forward(self, p, obs):
+        spec, names = self.spec(obs)
+        x, lead = pack_obs(spec, obs, names)
+        y = _encode(spec, x.astype(jnp.float32), encoder_leaves(p, names))
+        return y.reshape(lead + (self.embed_dim,))
 
 
-class LFF(nn.Module):
-    """Learnable Fourier features (networks.py:88-122)."""
+@dataclasses.dataclass(frozen=True)
+class _LinenEncoder(Module):
+    """A flax linen encoder behind the functional interface (its param
+    subtree sits under `scope`)."""
 
-    fourier_dim: int = 256
-    embed_dim: int = 72
-    sigma: float = 0.01
-    cat_input: bool = True
+    module: Any
+    scope: str
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        b = self.param(
-            "B",
-            lambda key, shape: self.sigma * jnp.ones(shape) * 0
-            + self.sigma * nn.initializers.normal(1.0)(key, shape),
-            (x.shape[-1], self.fourier_dim),
-        )
-        proj = (x @ b) * (2.0 * jnp.pi)
-        feats = [jnp.sin(proj), jnp.cos(proj)] + ([x] if self.cat_input else [])
-        return nn.Dense(self.embed_dim)(jnp.concatenate(feats, axis=-1))
+    def params(self, key, x):
+        return self.module.init(key, x)["params"]
 
-
-ENCODERS_MAP = {
-    "PartialAttentionEncoder": PartialAttentionEncoder,
-    "RelationEncoder": RelationEncoder,
-    "PartialRelationEncoder": PartialRelationEncoder,
-}
+    def forward(self, p, x):
+        return self.module.apply({"params": p}, x)
 
 
 def make_encoder(
     cfg_hidden_units, attn_encoder: str, obs_is_dict: bool, dtype: Any = None
-) -> nn.Module:
+) -> Module:
     """Encoder factory mirroring learning/common.py:88-142: flat specs get the
     LayerNorm+MLP, dict (composite) specs get the configured entity encoder."""
-    if obs_is_dict:
-        return ENCODERS_MAP[attn_encoder](dtype=dtype)
-    return FlatEncoder(tuple(cfg_hidden_units), dtype=dtype)
+    if not obs_is_dict:
+        return FlatEncoder(tuple(cfg_hidden_units), dtype=dtype)
+    if attn_encoder == "PartialAttentionEncoder":
+        return PartialAttentionEncoder(dtype=dtype)
+    from .linen import RELATION_ENCODERS
 
-
-class ConvVisionEncoder(nn.Module):
-    """Compact conv encoder for depth/rgb frames.
-
-    Stands in for the reference's torchvision MobileNetV3-Small branch
-    (networks.py:371-428) — vision is viz-only in the paper's tasks, so a
-    small strided CNN is the TPU-friendly choice (dense convs, static
-    shapes); swap in a full MobileNet port if vision tasks land.
-    """
-
-    out_dim: int = 128
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        # x: (..., H, W, C)
-        batch_shape = x.shape[:-3]
-        h = x.reshape((-1,) + x.shape[-3:])
-        for feat in (16, 32, 64):
-            h = nn.Conv(feat, (3, 3), strides=(2, 2))(h)
-            h = nn.relu(h)
-        h = jnp.mean(h, axis=(-3, -2))  # global average pool
-        h = nn.Dense(self.out_dim)(h)
-        return h.reshape(batch_shape + (self.out_dim,))
-
-
-# vision backbone registry (reference VISION_ENCODER_MAP, networks.py:369)
-def make_vision_encoder(kind: str, name: str) -> nn.Module:
-    if kind == "conv":
-        return ConvVisionEncoder(name=name)
-    if kind in ("mobilenet_v3_small", "mobilenet_v3_large"):
-        from .mobilenet import MobileNetV3
-
-        return MobileNetV3(
-            variant=kind.rsplit("_", 1)[1], name=name
-        )
-    raise ValueError(f"unknown vision encoder {kind!r}")
-
-
-class VisionActor(nn.Module):
-    """Mixed vision+state actor (MixedEncoder → DiagGaussian head): the
-    `ppo_vision` policy over envs emitting a "depth" frame alongside the
-    flat "observation" (reference MixedEncoder, networks.py:322-368, which
-    the paper never trains — here wired end-to-end as a parity-plus)."""
-
-    action_dim: int
-    vision_keys: Sequence[str] = ("depth",)
-    vision_encoder: str = "conv"
-
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]):
-        from .distributions import DiagGaussianHead
-
-        feats = MixedObsEncoder(
-            vision_keys=tuple(self.vision_keys),
-            vision_encoder=self.vision_encoder,
-        )(obs)
-        return DiagGaussianHead(self.action_dim)(feats.astype(jnp.float32))
-
-
-class VisionCritic(nn.Module):
-    """Mixed vision+state critic (MixedEncoder → value head)."""
-
-    vision_keys: Sequence[str] = ("depth",)
-    vision_encoder: str = "conv"
-    out_dim: int = 1
-
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        feats = MixedObsEncoder(
-            vision_keys=tuple(self.vision_keys),
-            vision_encoder=self.vision_encoder,
-        )(obs)
-        return nn.Dense(
-            self.out_dim, kernel_init=nn.initializers.orthogonal(0.01)
-        )(feats.astype(jnp.float32))
-
-
-class MixedObsEncoder(nn.Module):
-    """Vision branch + state branch, concatenated then projected
-    (MixedEncoder, networks.py:322-368).  `vision_encoder` selects the
-    backbone: "conv" (compact CNN) or "mobilenet_v3_small"/"_large"
-    (the reference's torchvision backbone, re-implemented TPU-native in
-    modules/mobilenet.py)."""
-
-    vision_keys: Sequence[str]
-    vision_encoder: str = "conv"
-    state_hidden: Sequence[int] = (256, 256)
-    out_dim: int = 256
-
-    @nn.compact
-    def __call__(self, obs: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        feats = []
-        for key in obs.keys():
-            if key in self.vision_keys:
-                feats.append(
-                    make_vision_encoder(
-                        self.vision_encoder, name=f"vision_{key}"
-                    )(obs[key])
-                )
-            else:
-                feats.append(MLP(tuple(self.state_hidden))(obs[key]))
-        x = jnp.concatenate(feats, axis=-1)
-        return MLP((self.out_dim,))(x)
+    return _LinenEncoder(RELATION_ENCODERS[attn_encoder](dtype=dtype), f"{attn_encoder}_0")

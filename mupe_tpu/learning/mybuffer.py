@@ -1,4 +1,4 @@
-"""Trajectory ring buffer — TPU-native counterpart of the reference's
+"""Trajectory ring buffer — JAX counterpart of the reference's
 `MyBuffer` (omni_drones/learning/common.py:42-81).
 
 The reference wraps torchrl's LazyTensorStorage: `extend` writes T new
@@ -15,7 +15,8 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..core import struct
 
 
 @struct.dataclass

@@ -18,8 +18,8 @@ from flax import linen as nn
 
 from ..gae import compute_gae
 from ..mappo import MAPPOCfg
-from ..modules.distributions import DiagGaussianHead, Gaussian
-from ..modules.networks import MLP
+from ..modules.distributions import Gaussian
+from ..modules.linen import MLP, DiagGaussianHead
 from ..modules.rnn import MaskedGRU
 from ..valuenorm import ValueNorm1
 
@@ -84,6 +84,8 @@ class RNNRollout(NamedTuple):
 
 class PPORNNPolicy:
     """Self-contained recurrent PPO (acting API threads hidden state)."""
+
+    recurrent = True
 
     def __init__(
         self,

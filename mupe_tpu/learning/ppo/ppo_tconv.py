@@ -11,8 +11,8 @@ import jax.numpy as jnp
 from flax import linen as nn
 
 from ..mappo import MAPPOCfg, MAPPOPolicy
-from ..modules.distributions import DiagGaussianHead, Gaussian
-from ..modules.networks import MLP
+from ..modules.distributions import Gaussian
+from ..modules.linen import MLP, DiagGaussianHead
 
 
 class TConvEncoder(nn.Module):

@@ -26,17 +26,6 @@ from typing import Any, Callable, Dict
 
 from ..utils.config import apply_overrides
 from .mappo import MAPPOCfg, MAPPOPolicy
-from .ppo import (
-    PPOCfg,
-    PPOPolicy,
-    PPOAdaptivePolicy,
-    PPORNNPolicy,
-    PPOSDFNavPolicy,
-    PPOTConvPolicy,
-    TransformerPPOPolicy,
-)
-from .ppo.ppo_adapt import PPOAdaptCfg
-from .ppo.ppo_rnn import PPORNNCfg
 
 ALGOS: Dict[str, Callable] = {}
 
@@ -83,8 +72,14 @@ def _make_mappo(env, overrides):
     )
 
 
+# The PPO family is built on flax linen (learning/modules/linen.py), so
+# each factory below imports its algorithm only when it is chosen.
+
+
 @register_algo("ppo")
 def _make_ppo(env, overrides):
+    from .ppo import PPOCfg, PPOPolicy
+
     cfg = _mk_cfg(PPOCfg, env, overrides)
     return PPOPolicy(
         cfg,
@@ -96,6 +91,8 @@ def _make_ppo(env, overrides):
 
 @register_algo("ppo_adapt")
 def _make_ppo_adapt(env, overrides):
+    from .ppo.ppo_adapt import PPOAdaptCfg, PPOAdaptivePolicy
+
     cfg = _mk_cfg(PPOAdaptCfg, env, overrides)
     if not _obs_is_dict(env):
         raise ValueError(
@@ -110,6 +107,8 @@ def _make_ppo_adapt(env, overrides):
 
 @register_algo("ppo_rnn")
 def _make_ppo_rnn(env, overrides):
+    from .ppo.ppo_rnn import PPORNNCfg, PPORNNPolicy
+
     cfg = _mk_cfg(PPORNNCfg, env, overrides)
     return PPORNNPolicy(
         cfg, n_agents=env.num_agents, action_dim=env.action_dim
@@ -118,6 +117,8 @@ def _make_ppo_rnn(env, overrides):
 
 @register_algo("ppo_tconv")
 def _make_ppo_tconv(env, overrides):
+    from .ppo import PPOTConvPolicy
+
     cfg = _mk_cfg(MAPPOCfg, env, overrides)
     cfg = dataclasses.replace(cfg, use_tp_net=False)
     return PPOTConvPolicy(
@@ -130,6 +131,8 @@ def _make_ppo_tconv(env, overrides):
 
 @register_algo("ppo_sdf")
 def _make_ppo_sdf(env, overrides):
+    from .ppo import PPOSDFNavPolicy
+
     cfg = _mk_cfg(MAPPOCfg, env, overrides)
     cfg = dataclasses.replace(cfg, use_tp_net=False)
     return PPOSDFNavPolicy(
@@ -143,7 +146,7 @@ def _make_ppo_vision(env, overrides):
     actor/critic over envs emitting a "depth" observation — the end-to-end
     consumer of sensors/depth.py (reference MixedEncoder networks.py:322-368;
     vision is viz-only there)."""
-    from .modules.networks import VisionActor, VisionCritic
+    from .modules.linen import VisionActor, VisionCritic
 
     overrides = dict(overrides or {})
     # backbone choice: "conv" (default) or "mobilenet_v3_small"/"_large"
@@ -170,6 +173,8 @@ def _make_ppo_vision(env, overrides):
 
 @register_algo("transformer")
 def _make_transformer(env, overrides):
+    from .ppo import TransformerPPOPolicy
+
     cfg = _mk_cfg(MAPPOCfg, env, overrides)
     cfg = dataclasses.replace(cfg, use_tp_net=False)
     # HideAndSeek-family envs emit per-agent entity dicts ([E, n, k, d]);
@@ -192,4 +197,4 @@ def make_policy(algo: str, env, overrides: Dict[str, Any] | None = None):
 
 def is_recurrent(policy) -> bool:
     """Recurrent policies thread hidden state through the rollout."""
-    return isinstance(policy, PPORNNPolicy)
+    return getattr(policy, "recurrent", False)

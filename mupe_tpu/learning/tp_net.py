@@ -7,89 +7,47 @@ observations at hideandseek.py:805-854.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from .modules.networks import Module, dense_params
 
 _GATES = ("i", "f", "g", "o")
 
 
-class _GateParams(nn.Module):
-    """Param holder replicating one OptimizedLSTMCell gate Dense's tree
-    ({'kernel'[, 'bias']}) so the fused path below shares checkpoints with
-    the nn.RNN(OptimizedLSTMCell) reference path bit-for-bit."""
+def _lstm_last_hidden(cell, xf, dtype):
+    """LSTM over a short fixed window → last hidden state [B, H].
 
-    in_dim: int
-    out_dim: int
-    use_bias: bool
-
-    @nn.compact
-    def __call__(self):
-        k = self.param(
-            "kernel", nn.initializers.lecun_normal(),
-            (self.in_dim, self.out_dim),
-        )
-        b = (
-            self.param("bias", nn.initializers.zeros, (self.out_dim,))
-            if self.use_bias
-            else None
-        )
-        return k, b
-
-
-class _FusedLSTM(nn.Module):
-    """LSTM over a short fixed window with the INPUT projections of all
-    steps hoisted into one matmul.
-
-    nn.RNN(OptimizedLSTMCell) issues 2 small matmuls per step (K = input
-    dim 16 and K = hidden 64 — mostly MXU padding at these contraction
-    widths); here x@W_i for every gate and every step is ONE
-    [B·T, F] × [F, 4H] matmul, and only the [B, H] × [H, 4H] recurrence
-    stays sequential.  Same math, same param tree (scope name pinned to
-    OptimizedLSTMCell_0), measured ~2x faster at the TP update's 240K-row
-    batches."""
-
-    hidden_dim: int
-    dtype: jnp.dtype
-
-    @nn.compact
-    def __call__(self, xf: jnp.ndarray) -> jnp.ndarray:
-        """xf: [B, T, F] → last hidden state [B, H]."""
-        b, t, f = xf.shape
-        h = self.hidden_dim
-        iks, hks, hbs = [], [], []
-        for g in _GATES:
-            ik, _ = _GateParams(f, h, use_bias=False, name=f"i{g}")()
-            hk, hb = _GateParams(h, h, use_bias=True, name=f"h{g}")()
-            iks.append(ik)
-            hks.append(hk)
-            hbs.append(hb)
-        wi = jnp.concatenate(iks, axis=1).astype(self.dtype)   # [F, 4H]
-        wh = jnp.concatenate(hks, axis=1).astype(self.dtype)   # [H, 4H]
-        bh = jnp.concatenate(hbs, axis=0).astype(self.dtype)   # [4H]
-        xw = (
-            xf.reshape(b * t, f).astype(self.dtype) @ wi
-        ).reshape(b, t, 4 * h)
-
-        c0 = jnp.zeros((b, h), self.dtype)
-        h0 = jnp.zeros((b, h), self.dtype)
-        carry = (c0, h0)
-        # unrolled python loop: T is small and static (10); matches the
-        # RNN path's unroll=16 and keeps XLA free to pipeline
-        for step in range(t):
-            c, hh = carry
-            gates = xw[:, step] + hh @ wh + bh
-            gi = nn.sigmoid(gates[:, :h])
-            gf = nn.sigmoid(gates[:, h : 2 * h])
-            gg = jnp.tanh(gates[:, 2 * h : 3 * h])
-            go = nn.sigmoid(gates[:, 3 * h :])
-            c = gf * c + gi * gg
-            hh = go * jnp.tanh(c)
-            carry = (c, hh)
-        return carry[1]
+    xf: [B, T, F].  The input projections of every gate and every step are
+    ONE [B·T, F] × [F, 4H] matmul; only the [B, H] × [H, 4H] recurrence is
+    sequential.  Gate math of flax's OptimizedLSTMCell:
+    c' = σ(f)·c + σ(i)·tanh(g), h' = σ(o)·tanh(c')."""
+    b, t, f = xf.shape
+    wi = jnp.concatenate([cell[f"i{g}"]["kernel"] for g in _GATES], axis=1).astype(dtype)
+    wh = jnp.concatenate([cell[f"h{g}"]["kernel"] for g in _GATES], axis=1).astype(dtype)
+    bh = jnp.concatenate([cell[f"h{g}"]["bias"] for g in _GATES], axis=0).astype(dtype)
+    h = wh.shape[0]
+    xw = (xf.reshape(b * t, f).astype(dtype) @ wi).reshape(b, t, 4 * h)
+    c = jnp.zeros((b, h), dtype)
+    hh = jnp.zeros((b, h), dtype)
+    # unrolled python loop: T is small and static (10), which keeps a
+    # nested while loop out of the enclosing rollout scan
+    for step in range(t):
+        gates = xw[:, step] + hh @ wh + bh
+        gi = jax.nn.sigmoid(gates[:, :h])
+        gf = jax.nn.sigmoid(gates[:, h : 2 * h])
+        gg = jnp.tanh(gates[:, 2 * h : 3 * h])
+        go = jax.nn.sigmoid(gates[:, 3 * h :])
+        c = gf * c + gi * gg
+        hh = go * jnp.tanh(c)
+    return hh
 
 
-class TPNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TPNet(Module):
     """LSTM encoder over the history window → tanh-normalized predictions.
 
     The LSTM matmuls run in bfloat16 (params and the head stay float32):
@@ -97,39 +55,39 @@ class TPNet(nn.Module):
     and the matmul tower is its entire cost; tanh-bounded activations make
     bf16 safe here, matching the policy trunks' precision policy.
 
-    `fused_input_proj` (default) hoists all per-step input projections
-    into one matmul (see _FusedLSTM) — same math and the SAME param tree
-    as the nn.RNN(OptimizedLSTMCell) reference path (kept for the
-    equivalence test), so checkpoints are interchangeable.
+    Param tree of flax's `nn.RNN(OptimizedLSTMCell)` + Dense "fc":
+    {"OptimizedLSTMCell_0": {i*: {kernel}, h*: {kernel, bias}}, "fc": ...},
+    with lecun-normal input, orthogonal recurrent and zero bias inits.
     """
 
     output_dim: int            # 3 * future_prediction_step
     hidden_dim: int = 64
     future_prediction_step: int = 5
     window_step: int = 1
-    dtype: jnp.dtype = jnp.bfloat16
-    fused_input_proj: bool = bool(int(__import__("os").environ.get("MUPE_TP_FUSED", "0")))
+    dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+    def params(self, key, x):
+        f, h = x.shape[-1], self.hidden_dim
+        keys = iter(jax.random.split(key, 2 * len(_GATES) + 1))
+        cell = {}
+        for g in _GATES:
+            cell[f"i{g}"] = {"kernel": jax.nn.initializers.lecun_normal()(next(keys), (f, h), jnp.float32)}
+        for g in _GATES:
+            cell[f"h{g}"] = {
+                "kernel": jax.nn.initializers.orthogonal()(next(keys), (h, h), jnp.float32),
+                "bias": jnp.zeros((h,), jnp.float32),
+            }
+        return {
+            "OptimizedLSTMCell_0": cell,
+            "fc": dense_params(next(keys), h, self.output_dim),
+        }
+
+    def forward(self, p, x):
         """x: (..., history_step, input_dim) → (..., output_dim) in (−1, 1)."""
         batch_shape = x.shape[:-2]
-        t = x.shape[-2]
-        xf = x.reshape((-1, t, x.shape[-1]))
-        if self.fused_input_proj:
-            last = _FusedLSTM(
-                self.hidden_dim, self.dtype, name="OptimizedLSTMCell_0"
-            )(xf).astype(jnp.float32)
-        else:
-            # unroll the (short, fixed) history window: removes a nested
-            # while loop from the enclosing rollout scan, which costs
-            # disproportionate XLA compile time and serializes tiny matmuls
-            outs = nn.RNN(
-                nn.OptimizedLSTMCell(self.hidden_dim, dtype=self.dtype),
-                unroll=16, name="lstm",
-            )(xf)
-            last = outs[:, -1, :].astype(jnp.float32)
-        y = nn.Dense(self.output_dim, name="fc")(last)
+        xf = x.reshape((-1,) + x.shape[-2:])
+        last = _lstm_last_hidden(p["OptimizedLSTMCell_0"], xf, self.dtype)
+        y = jnp.dot(last.astype(jnp.float32), p["fc"]["kernel"]) + p["fc"]["bias"]
         return jnp.tanh(y).reshape(batch_shape + (self.output_dim,))
 
 

@@ -7,7 +7,8 @@ Counterparts of omni_drones/learning/utils/valuenorm.py: `ValueNorm1`
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from ..core import struct
 
 
 @struct.dataclass

@@ -1,16 +1,18 @@
 """Native host-side components (C++ via ctypes).
 
-The compute path is pure JAX/XLA on TPU; the only work that belongs on the
-host is branchy, sequential scene-generation bootstrap — mirroring the
-reference, whose sole CPU-side algorithmic loop is the AEG easy-case BFS
-(hideandseek_envgen.py:235-275).  `generate_easy_tasks` loads
-`libmupe_native.so` (built by `build.sh`); a pure-Python BFS fallback keeps
-the framework functional without the native build.
+The compute path is pure JAX/XLA on the accelerator; the only work that
+belongs on the host is branchy, sequential scene-generation bootstrap —
+mirroring the reference, whose sole CPU-side algorithmic loop is the AEG
+easy-case BFS (hideandseek_envgen.py:235-275).  `generate_easy_tasks` loads
+`libmupe_native.so`, which `build.sh` compiles from `easy_tasks.cpp` on
+first use (the library is not tracked by git); a pure-Python BFS fallback
+keeps the framework functional where no C++ compiler is installed.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 from collections import deque
 from pathlib import Path
 from typing import Optional
@@ -28,19 +30,19 @@ def _load() -> Optional[ctypes.CDLL]:
     _LIB_TRIED = True
     path = Path(__file__).parent / "libmupe_native.so"
     if not path.exists():
-        # try building on the fly (g++ is in the image)
+        # build under a private name, then rename: processes that build at
+        # the same time (parallel test workers) never load a partial file
+        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
         try:
-            import subprocess
-
             subprocess.run(
-                ["sh", str(Path(__file__).parent / "build.sh")],
+                ["sh", str(path.parent / "build.sh"), str(tmp)],
                 check=True,
                 capture_output=True,
             )
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
+            tmp.unlink(missing_ok=True)
             return None
-    if not path.exists():
-        return None
+        os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
     lib.generate_easy_tasks.restype = ctypes.c_int
     lib.generate_easy_tasks.argtypes = [

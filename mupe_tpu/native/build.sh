@@ -1,6 +1,8 @@
 #!/bin/sh
-# Build the native host-side components into libmupe_native.so
+# Build the native host-side components into libmupe_native.so (or into the
+# path given as the first argument).
 set -e
 cd "$(dirname "$0")"
-g++ -O2 -shared -fPIC -std=c++17 -o libmupe_native.so easy_tasks.cpp
-echo "built $(pwd)/libmupe_native.so"
+out="${1:-libmupe_native.so}"
+g++ -O2 -shared -fPIC -std=c++17 -o "$out" easy_tasks.cpp
+echo "built $out"

@@ -1,6 +1,6 @@
 """Farthest-point sampling, jittable.
 
-TPU-native replacement for the one third-party native *algorithm* the
+Plain-JAX replacement for the one third-party native *algorithm* the
 reference depends on: DGL's CUDA `farthest_point_sampler`
 (dgl.geometry, used by GenBuffer.insert_history,
 omni_drones/envs/hide_and_seek/hideandseek_envgen.py:44,301).
@@ -50,20 +50,3 @@ def farthest_point_sampling(
     selected, _ = jax.lax.fori_loop(1, k, body, (selected, min_dist))
     return selected
 
-
-def farthest_point_sampling_auto(
-    points: jnp.ndarray,
-    k: int,
-    valid: jnp.ndarray | None = None,
-    start_index: int = 0,
-) -> jnp.ndarray:
-    """Backend-dispatched FPS: the Pallas kernel on TPU (the production AEG
-    path — one VMEM-resident max-min sweep instead of K fori_loop argmax
-    rounds), the jnp fallback elsewhere."""
-    if jax.default_backend() == "tpu":
-        from .fps_pallas import farthest_point_sampling_pallas
-
-        return farthest_point_sampling_pallas(
-            points, k, valid=valid, start_index=start_index
-        )
-    return farthest_point_sampling(points, k, valid=valid, start_index=start_index)

@@ -1,129 +1,57 @@
-"""Fused Pallas TPU kernels for the PartialAttentionEncoder + linear head.
+"""PartialAttentionEncoder + linear head on packed observation rows, in jnp.
 
 The MAPPO update's hot op is fwd+bwd of a tiny entity-attention encoder
-(reference networks.py:250-313 + head) over ~50k samples per minibatch, 128
-times per training iteration.  XLA executes it as ~60 small kernels with all
-intermediates round-tripping HBM (~17% MXU).  Here the whole network is ONE
-Pallas kernel per direction:
+(reference networks.py:250-313 + head) over ~50k samples per minibatch,
+128 times per training iteration.  This module holds that network as one
+straight-line function over a canonical tuple of parameter leaves, so the
+update can run actor and critic over the same packed minibatch rows
+(`reference_apply`) and `jax.grad` flows into the param tree through
+`extract_leaves`.  The functional `PartialAttentionEncoder`
+(learning/modules/networks.py) runs the same `_encode`.
 
-- `fwd`: grid over sample tiles; all activations stay in VMEM; params are
-  VMEM-resident across grid steps (constant index map).
-- `bwd`: recomputes the forward per tile (FLOPs are nearly free at these
-  shapes), then backpropagates, accumulating parameter gradients in VMEM
-  output blocks across sequential grid steps (TPU grids are sequential per
-  core) and writing them once at the end.
-- `pair`: the actor and critic updates are mathematically independent but
-  share the same minibatch rows, so one kernel per direction computes BOTH
-  networks — half the launches, one x load, and two independent instruction
-  chains the Mosaic scheduler can overlap (VPU softmax/LN of one network
-  against MXU matmuls of the other).
-
-Mosaic layout rules (learned the hard way in round 2): intermediates whose
-*sublane* dimension is the token count (e.g. `[6, 512]` attention scores)
-hit "Invalid relayout … vector<6x512xf32>" — a 6-row sublane dim can be
-neither tiled nor replicated.  The attention here therefore never builds a
-token-indexed array at all: softmax over the 6 tokens is unrolled into
-per-token `[T, 1]` columns (max/exp/sum chains), which lower to plain lane
-broadcasts.  The token-stacked `[n_tok*T, 128]` form is kept only where it
-wins — LayerNorm and the k/v projections ride one big matmul instead of
-n_tok small ones.
-
-Stacked residuals are stored bfloat16: every consumer is a bf16 matmul
-anyway (`_mm` casts), and the flax modules run their trunks in bf16 too, so
-this matches the reference numerics while halving VMEM (which is what lets
-the pair kernel fit in ~16 MB/core).
-
-The kernels are exposed through `fused_encoder_head` (single network) and
-`fused_pair_encoder_head` (actor+critic), `jax.custom_vjp` functions over a
-canonical tuple of parameter leaves extracted from the flax param tree
-(`extract_leaves` / `rebuild_grads`), so `jax.grad` of any loss through
-them works unchanged.  `reference_apply` is the same math in plain jnp —
-the CPU fallback and the golden model for kernel tests.
-
-Numerics match the flax modules (mupe_tpu/learning/modules/networks.py):
-matmuls in bfloat16 with float32 accumulation, LayerNorm statistics in
-float32, tanh-approximate GELU; softmax here is float32 (flax computes it
-in bfloat16 — deviation far below training noise).
+Numerics: matmuls in `EncoderSpec.dtype` (bfloat16 by default) with float32
+accumulation, LayerNorm statistics and softmax in float32, tanh-approximate
+GELU, float32 head.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
-import os
-from typing import Any, Dict, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 _LN_EPS = 1e-6  # flax LayerNorm default
-
-# Row-tile sizes for the sample grid.  The BWD kernels' recompute working
-# set caps their tile at 512 (1024 needs 26.7 MB VMEM vs the 16 MB limit,
-# measured); the FWD kernels hold no residuals and tile at 1536 (19.4 MB
-# at 2048 OOMs; 1536 measured best: 904.5K vs 900.4K @1024 env-steps/s
-# e2e with the split bwd).  Set MUPE_FUSED_TILE_FWD=0 to tie fwd to
-# `tile`.
-_DEFAULT_TILE = int(os.environ.get("MUPE_FUSED_TILE", "512"))
-_DEFAULT_TILE_FWD = int(os.environ.get("MUPE_FUSED_TILE_FWD", "1536"))
 
 
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
-    """Static description of one encoder+head instance.
+    """Static description of the encoder's input and precision.
 
     groups: per entity group (in canonical order) the (num_tokens, feat_dim).
+    dtype: matmul operand dtype of the trunk (name, e.g. "bfloat16").
     """
 
     groups: Tuple[Tuple[int, int], ...]
-    head_dim: int
-    embed_dim: int = 128
-    ff_dim: int = 128
-    tile: int = _DEFAULT_TILE
-    tile_fwd: int = _DEFAULT_TILE_FWD
-
-    @property
-    def fwd_tile(self) -> int:
-        return self.tile_fwd if self.tile_fwd else self.tile
-
-    @property
-    def pad_tile(self) -> int:
-        return max(self.tile, self.fwd_tile)
-
-    @property
-    def n_tokens(self) -> int:
-        return sum(k for k, _ in self.groups)
-
-    @property
-    def obs_dim(self) -> int:
-        return sum(k * d for k, d in self.groups)
-
-    @property
-    def n_leaves(self) -> int:
-        return 2 * len(self.groups) + 20
+    dtype: str = "bfloat16"
 
 
 # ---------------------------------------------------------------- param I/O
-def extract_leaves(spec: EncoderSpec, params, group_names: Sequence[str]):
-    """Flax param tree → canonical flat tuple of leaves.
+def encoder_leaves(enc, group_names: Sequence[str]) -> tuple:
+    """Encoder subtree (flax layout) → canonical flat tuple of leaves.
 
     Layout: per-group (Wg, bg)…, ln0(scale, bias), Wq, bq, Wk, bk, Wv, bv,
-    Wo, bo, ln1(scale, bias), W1, b1, W2, b2, ln2(scale, bias), Wh, bh.
-    Attention kernels are reshaped from flax's [in, heads, head] layout.
+    Wo, bo, ln1(scale, bias), W1, b1, W2, b2, ln2(scale, bias).
+    Attention kernels are reshaped from the [in, heads, head] layout.
     """
-    p = params["params"]
-    enc_key = next(k for k in p if k.startswith("PartialAttentionEncoder"))
-    enc = p[enc_key]
     se = enc["SplitEmbedding_0"]
-    e = spec.embed_dim
+    attn = enc["attn"]
+    e = attn["out"]["bias"].shape[-1]
     leaves = []
     for name in group_names:
         leaves += [se[f"embed_{name}"]["kernel"], se[f"embed_{name}"]["bias"]]
     leaves += [se["LayerNorm_0"]["scale"], se["LayerNorm_0"]["bias"]]
-    attn = enc["attn"]
     leaves += [
         attn["query"]["kernel"].reshape(e, e), attn["query"]["bias"].reshape(e),
         attn["key"]["kernel"].reshape(e, e), attn["key"]["bias"].reshape(e),
@@ -134,53 +62,21 @@ def extract_leaves(spec: EncoderSpec, params, group_names: Sequence[str]):
     leaves += [enc["Dense_0"]["kernel"], enc["Dense_0"]["bias"]]
     leaves += [enc["Dense_1"]["kernel"], enc["Dense_1"]["bias"]]
     leaves += [enc["LayerNorm_1"]["scale"], enc["LayerNorm_1"]["bias"]]
-    # head: actor = DiagGaussianHead_0/Dense_0, critic = top-level Dense_0
-    if "DiagGaussianHead_0" in p:
-        head = p["DiagGaussianHead_0"]["Dense_0"]
-    else:
-        head = p["Dense_0"]
-    leaves += [head["kernel"], head["bias"]]
     return tuple(leaves)
 
 
-def rebuild_grads(spec: EncoderSpec, params, group_names, dleaves):
-    """Canonical grad tuple → flax-shaped grad tree (zeros elsewhere)."""
-    grads = jax.tree_util.tree_map(jnp.zeros_like, params)
-    p = grads["params"]
+def extract_leaves(params, group_names: Sequence[str]):
+    """Actor/critic param tree → encoder leaves + (Wh, bh) of the head
+    (actor: DiagGaussianHead_0/Dense_0, critic: top-level Dense_0)."""
+    p = params["params"]
     enc_key = next(k for k in p if k.startswith("PartialAttentionEncoder"))
-    enc = p[enc_key]
-    se = enc["SplitEmbedding_0"]
-    e = spec.embed_dim
-    it = iter(dleaves)
-    for name in group_names:
-        se[f"embed_{name}"]["kernel"] = next(it)
-        se[f"embed_{name}"]["bias"] = next(it)
-    se["LayerNorm_0"]["scale"] = next(it)
-    se["LayerNorm_0"]["bias"] = next(it)
-    attn = enc["attn"]
-    attn["query"]["kernel"] = next(it).reshape(e, 1, e)
-    attn["query"]["bias"] = next(it).reshape(1, e)
-    attn["key"]["kernel"] = next(it).reshape(e, 1, e)
-    attn["key"]["bias"] = next(it).reshape(1, e)
-    attn["value"]["kernel"] = next(it).reshape(e, 1, e)
-    attn["value"]["bias"] = next(it).reshape(1, e)
-    attn["out"]["kernel"] = next(it).reshape(1, e, e)
-    attn["out"]["bias"] = next(it)
-    enc["LayerNorm_0"]["scale"] = next(it)
-    enc["LayerNorm_0"]["bias"] = next(it)
-    enc["Dense_0"]["kernel"] = next(it)
-    enc["Dense_0"]["bias"] = next(it)
-    enc["Dense_1"]["kernel"] = next(it)
-    enc["Dense_1"]["bias"] = next(it)
-    enc["LayerNorm_1"]["scale"] = next(it)
-    enc["LayerNorm_1"]["bias"] = next(it)
     if "DiagGaussianHead_0" in p:
         head = p["DiagGaussianHead_0"]["Dense_0"]
     else:
         head = p["Dense_0"]
-    head["kernel"] = next(it)
-    head["bias"] = next(it)
-    return grads
+    return encoder_leaves(p[enc_key], group_names) + (
+        head["kernel"], head["bias"]
+    )
 
 
 def pack_obs(spec: EncoderSpec, obs: Dict[str, jnp.ndarray], group_names):
@@ -194,1046 +90,61 @@ def pack_obs(spec: EncoderSpec, obs: Dict[str, jnp.ndarray], group_names):
 
 
 # ---------------------------------------------------------------- math core
-#
-# Reduction strategy (measured, r3): keep reductions on the VPU as plain
-# jnp ops.  The alternative — riding every mean/sum on the MXU as X @ 1 /
-# 1ᵀ @ X ones-matmuls — was implemented and benchmarked at production
-# shapes: 4.70 vs 3.87 ms/minibatch WORSE, because ~30 tiny matmuls per
-# tile pay the systolic-array fill/drain latency without amortizing it.
-# Mosaic's native lane/sublane reduction chains beat that.
-
-
-def _rowsum(x):
-    """[T, D] → [T, 1] sum over lanes."""
-    return jnp.sum(x, axis=-1, keepdims=True)
-
-
-def _rowmean(x):
-    return jnp.mean(x, axis=-1, keepdims=True)
-
-
-def _colsum(x):
-    """[T, D] → [D] sum over rows."""
-    return jnp.sum(x.astype(jnp.float32), axis=0)
-
-
 def _ln_f32(x, scale, bias):
     x = x.astype(jnp.float32)
-    m = _rowmean(x)
-    var = _rowmean(jnp.square(x)) - jnp.square(m)
-    inv = jax.lax.rsqrt(var + _LN_EPS)
-    n = (x - m) * inv
-    return n * scale + bias, n, inv
-
-
-def _mm(a, b):
-    """bf16 matmul with f32 accumulation (the TPU-native precision)."""
-    return jnp.dot(
-        a.astype(jnp.bfloat16),
-        b.astype(jnp.bfloat16),
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _mm_tn(a, b):
-    """aᵀ @ b without materializing the transpose (contract over rows)."""
-    return jax.lax.dot_general(
-        a.astype(jnp.bfloat16),
-        b.astype(jnp.bfloat16),
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _mm_nt(a, b):
-    """a @ bᵀ (the bwd chains' `grad @ Wᵀ`).
-
-    Implemented as an explicit transpose of the SMALL operand + `_mm`:
-    a dot_general contracting both operands' lane dims looks cleaner but
-    measured 18% SLOWER e2e (927K→764K env-steps/s region) — Mosaic
-    lowers it by relayouting the big row operand, not W."""
-    return _mm(a, b.T)
+    m = jnp.mean(x, axis=-1, keepdims=True)
+    var = jnp.maximum(jnp.mean(jnp.square(x), axis=-1, keepdims=True) - m * m, 0.0)
+    return (x - m) * jax.lax.rsqrt(var + _LN_EPS) * scale + bias
 
 
 def _gelu_tanh(x):
     # flax nn.gelu(approximate=True)
     c = math.sqrt(2.0 / math.pi)
-    inner = c * (x + 0.044715 * x * x * x)
-    return 0.5 * x * (1.0 + jnp.tanh(inner))
+    return 0.5 * x * (1.0 + jnp.tanh(c * (x + 0.044715 * x * x * x)))
 
 
-def _dgelu_tanh(x):
-    c = math.sqrt(2.0 / math.pi)
-    inner = c * (x + 0.044715 * x * x * x)
-    t = jnp.tanh(inner)
-    dinner = c * (1.0 + 3.0 * 0.044715 * x * x)
-    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * dinner
+def _encode(spec: EncoderSpec, x, leaves):
+    """[T, obs_dim] rows → [T, embed_dim] float32 encoder features.
 
+    Per-group token embeds, LayerNorm over all tokens, single-head attention
+    with the first token as the only query, then the post-norm residual
+    feed-forward block (networks.py:250-313, norm_first=False)."""
+    it = iter(leaves)
+    gw = [(next(it), next(it)) for _ in spec.groups]
+    g0, b0 = next(it), next(it)
+    wq, bq, wk, bk, wv, bv, wo, bo = (next(it) for _ in range(8))
+    g1, b1, w1, bf1, w2, bf2, g2, b2 = (next(it) for _ in range(8))
+    dt = jnp.dtype(spec.dtype)
 
-def _rows(a, t: int, t_rows: int):
-    """Token t's row block of a token-stacked [n_tok*T, D] array."""
-    return a[t * t_rows : (t + 1) * t_rows]
+    def mm(a, b):
+        return jnp.dot(a.astype(dt), b.astype(dt), preferred_element_type=jnp.float32)
+
+    t_rows = x.shape[0]
+    embeds, off = [], 0
+    for (k, d), (wg, bg) in zip(spec.groups, gw):
+        xg = x[:, off : off + k * d].reshape(t_rows, k, d)
+        embeds.append((mm(xg, wg) + bg).astype(dt))
+        off += k * d
+    h = _ln_f32(jnp.concatenate(embeds, axis=1), g0, b0)    # [T, n_tok, E]
+    q = mm(h[:, 0], wq) + bq                                # [T, E]
+    ks = (mm(h, wk) + bk).astype(dt).astype(jnp.float32)   # [T, n_tok, E]
+    vs = (mm(h, wv) + bv).astype(dt).astype(jnp.float32)
+    # scores and the weighted sum are elementwise products + reductions,
+    # so they stay in float32 on every backend
+    scores = jnp.sum(q[:, None, :] * ks, axis=-1) / math.sqrt(q.shape[-1])
+    att = jnp.sum(jax.nn.softmax(scores, axis=-1)[..., None] * vs, axis=1)
+    y1 = _ln_f32(h[:, 0] + mm(att, wo) + bo, g1, b1)
+    f = _gelu_tanh(mm(y1, w1) + bf1)
+    return _ln_f32(y1 + mm(f, w2) + bf2, g2, b2)
 
 
 def _forward_core(spec: EncoderSpec, x, leaves):
-    """Straight-line fwd shared by kernel and reference.
-
-    Returns (out, residuals) where residuals hold everything bwd reuses.
-    x: [T, obs_dim] f32.
-
-    Token batching: after the per-token embeds (unavoidably separate —
-    different input widths), all tokens are stacked along the ROW axis
-    ([n_tok·T, 128], token-major) so LN0 and the k/v projections are ONE
-    matmul each instead of n_tok small ones (the kernel is latency-bound
-    on its chain of small sequential matmuls, so fewer/larger matmuls is
-    the main perf lever).  The attention softmax over tokens is then
-    unrolled into per-token [T, 1] columns — a token-indexed array like
-    [n_tok, T] has a non-8-multiple sublane dim that Mosaic cannot
-    relayout (round-2 failure mode), while [T, 1] columns are plain lane
-    broadcasts.
-    """
-    it = iter(leaves)
-    g = len(spec.groups)
-    gw = [(next(it), next(it)) for _ in range(g)]
-    g0, b0 = next(it), next(it)
-    wq, bq, wk, bk, wv, bv, wo, bo = (next(it) for _ in range(8))
-    g1, b1 = next(it), next(it)
-    w1, bf1, w2, bf2 = (next(it) for _ in range(4))
-    g2, b2 = next(it), next(it)
-    wh, bh = next(it), next(it)
-
-    t_rows = x.shape[0]
-    n_tok = spec.n_tokens
-    # per-token embeds (small K, one matmul per token; row-stacking a
-    # group's tokens into one [k·T, d] operand is NOT possible — the
-    # lane-slices of x carry different sublane offsets and Mosaic
-    # rejects the row concat with "offset mismatch on non-concat dim")
-    xs, es = [], []
-    off = 0
-    for (k, d), (wg, bg) in zip(spec.groups, gw):
-        for _ in range(k):
-            xt = x[:, off : off + d]
-            es.append((_mm(xt, wg) + bg).astype(jnp.bfloat16))
-            xs.append(xt)
-            off += d
-    e_all = jnp.concatenate(es, axis=0)           # [n_tok·T, 128] token-major
-    h_f32, n0_all, inv0_all = _ln_f32(e_all, g0, b0)
-    h_all = h_f32.astype(jnp.bfloat16)
-    n0_all = n0_all.astype(jnp.bfloat16)
-    h0 = h_f32[:t_rows]
-    q = _mm(h0, wq) + bq                          # [T, 128] f32
-    ks_all = (_mm(h_all, wk) + bk).astype(jnp.bfloat16)
-    vs_all = (_mm(h_all, wv) + bv).astype(jnp.bfloat16)
-    scale = 1.0 / math.sqrt(spec.embed_dim)
-    # -------- per-column softmax over tokens (all [T, 1] / [T, 128]).
-    # Lane-stacking the n_tok score columns into one [T, n_tok] array
-    # (fewer, wider VPU ops) measured 17% SLOWER e2e (927K→769K
-    # env-steps/s): each [T,1]→[T,n_tok] lane concat lowers to masked
-    # selects/relayouts that cost more than the narrow op chain saves.
-    s_cols = []
-    for t in range(n_tok):
-        kt = _rows(ks_all, t, t_rows).astype(jnp.float32)
-        s_cols.append(_rowsum(q * kt) * scale)
-    smax = s_cols[0]
-    for t in range(1, n_tok):
-        smax = jnp.maximum(smax, s_cols[t])
-    e_cols = [jnp.exp(s - smax) for s in s_cols]
-    denom = e_cols[0]
-    for t in range(1, n_tok):
-        denom = denom + e_cols[t]
-    recip = 1.0 / denom
-    a_cols = [e * recip for e in e_cols]          # attention weights [T, 1]
-    att = a_cols[0] * _rows(vs_all, 0, t_rows).astype(jnp.float32)
-    for t in range(1, n_tok):
-        att = att + a_cols[t] * _rows(vs_all, t, t_rows).astype(jnp.float32)
-    o = _mm(att, wo) + bo
-    r1 = h0 + o
-    y1, n1, inv1 = _ln_f32(r1, g1, b1)
-    pre1 = _mm(y1, w1) + bf1
-    f = _gelu_tanh(pre1)
-    g2out = _mm(f, w2) + bf2
-    r2 = y1 + g2out
-    y2, n2, inv2 = _ln_f32(r2, g2, b2)
-    out = _mm(y2, wh) + bh
-    res = dict(
-        xs=xs, h_all=h_all, n0_all=n0_all, inv0_all=inv0_all, q=q,
-        ks_all=ks_all, vs_all=vs_all, a_cols=a_cols, att=att,
-        n1=n1, inv1=inv1, y1=y1, pre1=pre1,
-        f=f, n2=n2, inv2=inv2, y2=y2,
-    )
-    return out, res
+    """Encoder + float32 linear head: [T, obs_dim] → [T, head_dim]."""
+    *enc, wh, bh = leaves
+    return jnp.dot(_encode(spec, x, enc), wh) + bh
 
 
-def _ln_bwd(dy, n, inv, scale):
-    """Given d(out) of LN out = n*scale+bias, return (dx, dscale, dbias)."""
-    n = n.astype(jnp.float32)
-    dscale = _colsum(dy * n)
-    dbias = _colsum(dy)
-    dn = dy * scale
-    dx = inv * (dn - _rowmean(dn) - n * _rowmean(dn * n))
-    return dx, dscale, dbias
-
-
-def _backward_core(spec: EncoderSpec, leaves, res, dout):
-    """Straight-line bwd; returns grads in the canonical leaf order."""
-    it = iter(leaves)
-    g = len(spec.groups)
-    gw = [(next(it), next(it)) for _ in range(g)]
-    g0, b0 = next(it), next(it)
-    wq, bq, wk, bk, wv, bv, wo, bo = (next(it) for _ in range(8))
-    g1, b1 = next(it), next(it)
-    w1, bf1, w2, bf2 = (next(it) for _ in range(4))
-    g2, b2 = next(it), next(it)
-    wh, bh = next(it), next(it)
-
-    scale = 1.0 / math.sqrt(spec.embed_dim)
-    n_tok = spec.n_tokens
-    t_rows = dout.shape[0]
-
-    dwh = _mm_tn(res["y2"], dout)
-    dbh = _colsum(dout)
-    dy2 = _mm_nt(dout, wh)
-    dr2, dg2ln, db2ln = _ln_bwd(dy2, res["n2"], res["inv2"], g2)
-    dy1 = dr2
-    dg2out = dr2
-    dw2 = _mm_tn(res["f"], dg2out)
-    dbf2 = _colsum(dg2out)
-    df = _mm_nt(dg2out, w2)
-    dpre1 = df * _dgelu_tanh(res["pre1"])
-    dw1 = _mm_tn(res["y1"], dpre1)
-    dbf1 = _colsum(dpre1)
-    dy1 = dy1 + _mm_nt(dpre1, w1)
-    dr1, dg1ln, db1ln = _ln_bwd(dy1, res["n1"], res["inv1"], g1)
-    dh0 = dr1
-    do = dr1
-    dwo = _mm_tn(res["att"], do)
-    dbo = _colsum(do)
-    datt = _mm_nt(do, wo)
-    # attention bwd — per-token [T, 1] columns (see _forward_core layout note)
-    a_cols, q = res["a_cols"], res["q"]
-    ks_all, vs_all = res["ks_all"], res["vs_all"]
-    das_cols = []
-    for t in range(n_tok):
-        vt = _rows(vs_all, t, t_rows).astype(jnp.float32)
-        das_cols.append(_rowsum(datt * vt))
-    wsum = a_cols[0] * das_cols[0]
-    for t in range(1, n_tok):
-        wsum = wsum + a_cols[t] * das_cols[t]
-    dss_cols = [a * (das - wsum) for a, das in zip(a_cols, das_cols)]
-    dq = dss_cols[0] * _rows(ks_all, 0, t_rows).astype(jnp.float32)
-    for t in range(1, n_tok):
-        dq = dq + dss_cols[t] * _rows(ks_all, t, t_rows).astype(jnp.float32)
-    dq = dq * scale
-    dk_blocks = [
-        (ds * q * scale).astype(jnp.bfloat16) for ds in dss_cols
-    ]
-    dv_blocks = [(a * datt).astype(jnp.bfloat16) for a in a_cols]
-    # projections — one batched matmul over the stacked token axis
-    h_all = res["h_all"]
-    dks_all = jnp.concatenate(dk_blocks, axis=0)   # [n_tok·T, 128] bf16
-    dvs_all = jnp.concatenate(dv_blocks, axis=0)
-    dwq = _mm_tn(h_all[:t_rows], dq)
-    dbq = _colsum(dq)
-    dwk = _mm_tn(h_all, dks_all)
-    dbk = _colsum(dks_all)
-    dwv = _mm_tn(h_all, dvs_all)
-    dbv = _colsum(dvs_all)
-    dh_all = _mm_nt(dks_all, wk) + _mm_nt(dvs_all, wv)
-    dh_tok0 = dh_all[:t_rows] + dh0 + _mm_nt(dq, wq)
-    dh_all = jnp.concatenate([dh_tok0, dh_all[t_rows:]], axis=0)
-    # LN0 (batched over tokens) + per-token embed bwd
-    de_all, dg0, db0 = _ln_bwd(
-        dh_all, res["n0_all"], res["inv0_all"], g0
-    )
-    dgw = []
-    t = 0
-    for (k, d), (wg, bg) in zip(spec.groups, gw):
-        dwg = jnp.zeros(wg.shape, jnp.float32)
-        dbg = jnp.zeros(bg.shape, jnp.float32)
-        for _ in range(k):
-            de = _rows(de_all, t, t_rows)
-            dwg = dwg + _mm_tn(res["xs"][t], de)
-            dbg = dbg + _colsum(de)
-            t += 1
-        dgw += [dwg, dbg]
-    return tuple(
-        dgw
-        + [dg0, db0, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo]
-        + [dg1ln, db1ln, dw1, dbf1, dw2, dbf2, dg2ln, db2ln, dwh, dbh]
-    )
-
-
-# ------------------------------------------------------------ reference path
 def reference_apply(spec: EncoderSpec, leaves, obs_packed):
-    """Pure-jnp forward — golden model for tests and non-TPU fallback."""
-    out, _ = _forward_core(spec, obs_packed, leaves)
-    return out
+    """[S, obs_dim] → [S, head_dim] through the encoder+head."""
+    return _forward_core(spec, obs_packed.astype(jnp.float32), leaves)
 
-
-# ---------------------------------------------------------------- kernels
-def _fwd_kernel(spec: EncoderSpec, *refs):
-    x_ref = refs[0]
-    leaf_refs = refs[1 : 1 + spec.n_leaves]
-    out_ref = refs[1 + spec.n_leaves]
-    leaves = [r[:] for r in leaf_refs]
-    out, _ = _forward_core(spec, x_ref[:].astype(jnp.float32), leaves)
-    out_ref[:] = out
-
-
-def _bwd_kernel(spec: EncoderSpec, *refs):
-    x_ref = refs[0]
-    dout_ref = refs[1]
-    leaf_refs = refs[2 : 2 + spec.n_leaves]
-    grad_refs = refs[2 + spec.n_leaves :]
-    leaves = [r[:] for r in leaf_refs]
-    _, res = _forward_core(spec, x_ref[:].astype(jnp.float32), leaves)
-    grads = _backward_core(spec, leaves, res, dout_ref[:].astype(jnp.float32))
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _():
-        for gr in grad_refs:
-            gr[:] = jnp.zeros(gr.shape, jnp.float32)
-
-    for gr, g_ in zip(grad_refs, grads):
-        gr[:] = gr[:] + g_.reshape(gr.shape)
-
-
-def _pair_fwd_kernel(spec_a: EncoderSpec, spec_b: EncoderSpec, *refs):
-    na, nb = spec_a.n_leaves, spec_b.n_leaves
-    x_ref = refs[0]
-    la = [r[:] for r in refs[1 : 1 + na]]
-    lb = [r[:] for r in refs[1 + na : 1 + na + nb]]
-    out_a_ref, out_b_ref = refs[1 + na + nb], refs[2 + na + nb]
-    x = x_ref[:].astype(jnp.float32)
-    out_a, _ = _forward_core(spec_a, x, la)
-    out_b, _ = _forward_core(spec_b, x, lb)
-    out_a_ref[:] = out_a
-    out_b_ref[:] = out_b
-
-
-def _pair_bwd_kernel(spec_a: EncoderSpec, spec_b: EncoderSpec, *refs):
-    na, nb = spec_a.n_leaves, spec_b.n_leaves
-    x_ref, dout_a_ref, dout_b_ref = refs[0], refs[1], refs[2]
-    la = [r[:] for r in refs[3 : 3 + na]]
-    lb = [r[:] for r in refs[3 + na : 3 + na + nb]]
-    grad_refs = refs[3 + na + nb :]
-    x = x_ref[:].astype(jnp.float32)
-    _, res_a = _forward_core(spec_a, x, la)
-    grads_a = _backward_core(
-        spec_a, la, res_a, dout_a_ref[:].astype(jnp.float32)
-    )
-    _, res_b = _forward_core(spec_b, x, lb)
-    grads_b = _backward_core(
-        spec_b, lb, res_b, dout_b_ref[:].astype(jnp.float32)
-    )
-    grads = list(grads_a) + list(grads_b)
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _():
-        for gr in grad_refs:
-            gr[:] = jnp.zeros(gr.shape, jnp.float32)
-
-    for gr, g_ in zip(grad_refs, grads):
-        gr[:] = gr[:] + g_.reshape(gr.shape)
-
-
-@dataclasses.dataclass(frozen=True)
-class PPOLossCfg:
-    """Static PPO-loss constants baked into the fwd+loss kernel."""
-
-    clip_param: float
-    huber_delta: float
-    action_dim: int
-    n_rows: int          # unpadded row count S (normalization + pad mask)
-
-
-_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
-
-# column layout of the kernel's per-row stats output [T, 9 + A]
-_SUM_MIN12 = 0      # min(surr1, surr2)
-_SUM_RATIO = 1      # ratio
-_SUM_RATIO2 = 2     # ratio²
-_SUM_H1 = 3         # huber(v − R)
-_SUM_H2 = 4         # huber(clip_v − R)
-_SUM_SQERR = 5      # (v − R)²
-_SUM_RET = 6        # R
-_SUM_RET2 = 7       # R²
-_SUM_LOGR = 8       # clipped log-ratio (for the k3 approx-KL estimator)
-_SUM_DLS = 9        # cols 9..9+A: dlogp·(z²−1) per action dim
-_N_STATS = 9
-
-
-def _pair_fwd_loss_kernel(
-    spec_a: EncoderSpec, spec_c: EncoderSpec, loss: PPOLossCfg, *refs
-):
-    """Pair forward + the full PPO-clip/clipped-Huber loss gradient math in
-    ONE kernel: emits per-row dμ and BOTH value-branch dv candidates (the
-    reference takes max of batch-MEAN huber losses, mappo.py:326-352, so
-    branch selection needs the full batch), plus a per-row stats matrix
-    [T, 8+A].  Mosaic-layout rules applied throughout: everything is
-    elementwise (no in-kernel scalar reductions — ~12 sublane reductions
-    per tile measured +0.45 ms/minibatch), the loss operands arrive as
-    SEPARATE row inputs (lane-slicing an [T, 8] aux costs per-lane
-    relayouts), and the stats matrix is built by mask-multiply-add, not
-    lane-concatenation of 1-lane columns."""
-    na, nc = spec_a.n_leaves, spec_c.n_leaves
-    x_ref, act_ref, logp_ref, adv_ref, vold_ref, ret_ref, ls_ref = refs[:7]
-    la = [r[:] for r in refs[7 : 7 + na]]
-    lc = [r[:] for r in refs[7 + na : 7 + na + nc]]
-    dmu_ref, dv1_ref, dv2_ref, stats_ref = refs[7 + na + nc :]
-
-    x = x_ref[:].astype(jnp.float32)
-    mean, _ = _forward_core(spec_a, x, la)              # [T, A]
-    vout, _ = _forward_core(spec_c, x, lc)              # [T, 1]
-    dmu, dv1, dv2, stats = _loss_math(
-        loss, mean, vout,
-        act_ref[:].astype(jnp.float32),
-        logp_ref[:].astype(jnp.float32),
-        adv_ref[:].astype(jnp.float32),
-        vold_ref[:].astype(jnp.float32),
-        ret_ref[:].astype(jnp.float32),
-        ls_ref[:].astype(jnp.float32),
-    )
-    dmu_ref[:] = dmu
-    dv1_ref[:] = dv1
-    dv2_ref[:] = dv2
-    stats_ref[:] = stats
-
-
-def _loss_math(loss, mean, vout, act, logp_old, adv, v_old, ret, log_std):
-    """PPO-clip + clipped-Huber per-row gradient/stat math shared by the
-    fwd+loss kernels.  Returns (dmu [T,A], dv1, dv2 [T,1], stats [T,K])."""
-    A = loss.action_dim
-    t_rows = mean.shape[0]
-    step = pl.program_id(0)
-    row = step * t_rows + jax.lax.broadcasted_iota(
-        jnp.int32, (t_rows, 1), 0
-    )
-    maskr = (row < loss.n_rows).astype(jnp.float32)     # padded-row mask
-    inv_s = 1.0 / loss.n_rows
-    eps = loss.clip_param
-    delta = loss.huber_delta
-
-    # ---- actor: PPO-clip (matches mappo._update_joint loss_fn exactly)
-    sigma = jnp.exp(log_std)
-    z = (act - mean) / sigma
-    logp = jnp.sum(
-        -0.5 * jnp.square(z) - log_std - _LOG_SQRT_2PI, axis=-1, keepdims=True
-    )
-    log_ratio = logp - logp_old
-    ratio = jnp.exp(jnp.clip(log_ratio, -20.0, 20.0))  # inf guard
-    surr1 = ratio * adv
-    surr2 = jnp.clip(ratio, 1.0 - eps, 1.0 + eps) * adv
-    min12 = jnp.minimum(surr1, surr2)
-    in_clip = (ratio > 1.0 - eps) & (ratio < 1.0 + eps)
-    g_ratio = adv * jnp.where(
-        surr1 <= surr2, 1.0, in_clip.astype(jnp.float32)
-    )
-    # exp(clip(.)) saturates: zero gradient outside (−20, 20), matching
-    # the autodiff semantics of the XLA path (clip has zero cotangent at
-    # the rails) — without this mask a saturated ratio emits a ~e^20-scale
-    # gradient, exactly the blow-up the clamp exists to prevent.
-    unsat = ((log_ratio > -20.0) & (log_ratio < 20.0)).astype(jnp.float32)
-    # dL_policy/dlogp, with −mean(min·A) normalization folded in
-    dlogp = -(A * inv_s) * g_ratio * ratio * maskr * unsat  # [T, 1]
-    dmu = dlogp * z / sigma                             # [T, A]
-
-    # ---- critic: clipped Huber, both branches (selection outside)
-    d1 = vout - ret
-    clip_v = v_old + jnp.clip(vout - v_old, -eps, eps)
-    d2 = clip_v - ret
-
-    def hub(d):
-        ad = jnp.abs(d)
-        return jnp.where(ad <= delta, 0.5 * d * d, delta * (ad - 0.5 * delta))
-
-    dv1 = inv_s * jnp.clip(d1, -delta, delta) * maskr
-    dv2 = (
-        inv_s * jnp.clip(d2, -delta, delta)
-        * (jnp.abs(vout - v_old) <= eps).astype(jnp.float32) * maskr
-    )
-
-    # [T, 9+A] stats via broadcast mask-multiply-add ([T,1]·[1,K] lane
-    # broadcasts — no lane-concat, no relayout)
-    n_cols = _N_STATS + A
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, n_cols), 1)
-    cols = [
-        (_SUM_MIN12, min12 * maskr),
-        (_SUM_RATIO, ratio * maskr),
-        (_SUM_RATIO2, jnp.square(ratio) * maskr),
-        (_SUM_H1, hub(d1) * maskr),
-        (_SUM_H2, hub(d2) * maskr),
-        (_SUM_SQERR, jnp.square(d1) * maskr),
-        (_SUM_RET, ret * maskr),
-        (_SUM_RET2, jnp.square(ret) * maskr),
-        (_SUM_LOGR, jnp.clip(log_ratio, -20.0, 20.0) * maskr),
-    ]
-    stats = jnp.zeros((mean.shape[0], n_cols), jnp.float32)
-    for k, col in cols:
-        stats = stats + col * (lane == k).astype(jnp.float32)
-    dls_rows = dlogp * (jnp.square(z) - 1.0)            # [T, A]
-    for d in range(A):
-        stats = stats + dls_rows[:, d : d + 1] * (
-            lane == _SUM_DLS + d
-        ).astype(jnp.float32)
-    return dmu, dv1, dv2, stats
-
-
-@functools.lru_cache(maxsize=None)
-def _build_pair_loss_call(
-    spec_a: EncoderSpec,
-    spec_c: EncoderSpec,
-    loss: PPOLossCfg,
-    s_padded: int,
-    interpret: bool,
-):
-    assert spec_a.groups == spec_c.groups and spec_a.tile == spec_c.tile
-    tile = spec_a.tile
-    n_tiles = s_padded // tile
-    A = loss.action_dim
-
-    def fwd_loss(x, act, logp_old, adv, v_old, ret, log_std, leaves_a, leaves_b):
-        leaves = list(leaves_a) + list(leaves_b)
-        return pl.pallas_call(
-            functools.partial(_pair_fwd_loss_kernel, spec_a, spec_c, loss),
-            grid=(n_tiles,),
-            in_specs=[
-                _row_spec(tile, spec_a.obs_dim),
-                _row_spec(tile, A),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-            ]
-            + _const_specs([log_std])
-            + _const_specs(leaves),
-            out_specs=[
-                _row_spec(tile, A),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-                _row_spec(tile, _N_STATS + A),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((s_padded, A), jnp.float32),
-                jax.ShapeDtypeStruct((s_padded, 1), jnp.float32),
-                jax.ShapeDtypeStruct((s_padded, 1), jnp.float32),
-                jax.ShapeDtypeStruct((s_padded, _N_STATS + A), jnp.float32),
-            ],
-            interpret=interpret,
-        )(x, act, logp_old, adv, v_old, ret, log_std, *leaves)
-
-    return fwd_loss
-
-
-def _pair_fwd_loss_agrad_kernel(
-    spec_a: EncoderSpec, spec_c: EncoderSpec, loss: PPOLossCfg, *refs
-):
-    """fwd (both nets) + PPO loss + ACTOR backprop in one launch.
-
-    The actor's forward activations are still live in VMEM when its
-    per-row cotangent dμ is computed, so its backward pass runs right here
-    with ZERO recompute — the separate bwd launch that remains is
-    critic-only (the clipped-Huber branch is a max of batch MEANS,
-    mappo.py:326-352, so the critic cotangent needs the full batch and
-    cannot be resolved per tile)."""
-    na, nc = spec_a.n_leaves, spec_c.n_leaves
-    x_ref, act_ref, logp_ref, adv_ref, vold_ref, ret_ref, ls_ref = refs[:7]
-    la = [r[:] for r in refs[7 : 7 + na]]
-    lc = [r[:] for r in refs[7 + na : 7 + na + nc]]
-    outs = refs[7 + na + nc :]
-    dv1_ref, dv2_ref, stats_ref = outs[:3]
-    agrad_refs = outs[3:]
-
-    x = x_ref[:].astype(jnp.float32)
-    # critic FIRST: its intermediates die before the actor's fwd+bwd
-    # peak, so scoped VMEM is ~max(critic fwd, actor fwd+bwd) instead of
-    # their sum (20.6 MB at tile 512 — over the 16 MB budget — when the
-    # actor residuals stay live across the critic forward)
-    vout, _ = _forward_core(spec_c, x, lc)              # [T, 1]
-    mean, res_a = _forward_core(spec_a, x, la)          # [T, A] + residuals
-    dmu, dv1, dv2, stats = _loss_math(
-        loss, mean, vout,
-        act_ref[:].astype(jnp.float32),
-        logp_ref[:].astype(jnp.float32),
-        adv_ref[:].astype(jnp.float32),
-        vold_ref[:].astype(jnp.float32),
-        ret_ref[:].astype(jnp.float32),
-        ls_ref[:].astype(jnp.float32),
-    )
-    dv1_ref[:] = dv1
-    dv2_ref[:] = dv2
-    stats_ref[:] = stats
-    grads_a = _backward_core(spec_a, la, res_a, dmu)
-    step = pl.program_id(0)
-
-    @pl.when(step == 0)
-    def _():
-        for gr in agrad_refs:
-            gr[:] = jnp.zeros(gr.shape, jnp.float32)
-
-    for gr, g_ in zip(agrad_refs, grads_a):
-        gr[:] = gr[:] + g_.reshape(gr.shape)
-
-
-@functools.lru_cache(maxsize=None)
-def _build_pair_loss_agrad_call(
-    spec_a: EncoderSpec,
-    spec_c: EncoderSpec,
-    loss: PPOLossCfg,
-    s_padded: int,
-    interpret: bool,
-):
-    assert spec_a.groups == spec_c.groups
-    tile = spec_a.tile
-    n_tiles = s_padded // tile
-    A = loss.action_dim
-
-    def call(x, act, logp_old, adv, v_old, ret, log_std, leaves_a, leaves_c):
-        leaves = list(leaves_a) + list(leaves_c)
-        grad_shapes = [
-            jax.ShapeDtypeStruct(l.shape, jnp.float32) for l in leaves_a
-        ]
-        outs = pl.pallas_call(
-            functools.partial(
-                _pair_fwd_loss_agrad_kernel, spec_a, spec_c, loss
-            ),
-            grid=(n_tiles,),
-            in_specs=[
-                _row_spec(tile, spec_a.obs_dim),
-                _row_spec(tile, A),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-            ]
-            + _const_specs([log_std])
-            + _const_specs(leaves),
-            out_specs=[
-                _row_spec(tile, 1),
-                _row_spec(tile, 1),
-                _row_spec(tile, _N_STATS + A),
-            ]
-            + _const_specs(list(leaves_a)),
-            out_shape=[
-                jax.ShapeDtypeStruct((s_padded, 1), jnp.float32),
-                jax.ShapeDtypeStruct((s_padded, 1), jnp.float32),
-                jax.ShapeDtypeStruct((s_padded, _N_STATS + A), jnp.float32),
-            ]
-            + grad_shapes,
-            interpret=interpret,
-        )(x, act, logp_old, adv, v_old, ret, log_std, *leaves)
-        return outs[0], outs[1], outs[2], outs[3:]
-
-    return call
-
-
-def fused_pair_ppo_grads_fwdloss(
-    spec_a: EncoderSpec,
-    spec_c: EncoderSpec,
-    loss: PPOLossCfg,
-    leaves_a,
-    leaves_c,
-    log_std,
-    x,
-    act,
-    logp_old,
-    adv,
-    v_old,
-    ret,
-    interpret: bool = False,
-):
-    """Direct PPO gradients in THREE launches, each at its best tile:
-
-      1. `_pair_fwd_loss_kernel` — fwd of both nets + the whole PPO
-         loss-gradient math (per-row dμ, both dv candidates, stat sums)
-         at the LARGE fwd tile (no residuals live, same working set as
-         the plain pair fwd kernel);
-      2+3. the standard split single-network bwd launches (actor with
-         dout=dμ, critic with dout=dv after the value-branch select) at
-         `_PAIR_BWD_TILE` — identical to the default `_update_joint`
-         path's bwd, so its tile tuning carries over unchanged.
-
-    vs `fused_pair_ppo_grads` (the agrad kernel): the actor IS recomputed
-    in its bwd launch, but no launch is forced down to the agrad
-    compromise tile (448), and the ~60-op XLA loss chain of the default
-    path disappears.  Same return contract as `fused_pair_ppo_grads`."""
-    s = x.shape[0]
-    if not interpret:
-        t = int(os.environ.get("MUPE_FWDLOSS_TILE", "1536"))
-        spec_af = dataclasses.replace(spec_a, tile=t, tile_fwd=t)
-        spec_cf = dataclasses.replace(spec_c, tile=t, tile_fwd=t)
-    else:
-        spec_af, spec_cf = spec_a, spec_c
-    tile = spec_af.pad_tile
-    xp = _pad_rows(x, tile)
-    pads = [
-        _pad_rows(a.astype(jnp.float32), tile)
-        for a in (act, logp_old, adv, v_old, ret)
-    ]
-    fwd_loss = _build_pair_loss_call(
-        spec_af, spec_cf, loss, xp.shape[0], interpret
-    )
-    dmu, dv1, dv2, stats = fwd_loss(
-        xp, *pads, log_std, tuple(leaves_a), tuple(leaves_c)
-    )
-    sums = jnp.sum(stats, axis=0)
-    h1 = sums[_SUM_H1] / loss.n_rows
-    h2 = sums[_SUM_H2] / loss.n_rows
-    dv = jnp.where(h1 >= h2, dv1, dv2)
-    sa = _split_bwd_spec(spec_a, spec_a.tile if interpret else None)
-    sc = _split_bwd_spec(spec_c, spec_c.tile if interpret else None)
-    pad = max(sa.pad_tile, sc.pad_tile)
-    x2 = _pad_rows(x, pad)
-    dmup = _pad_rows(dmu[:s], pad)
-    dvp = _pad_rows(dv[:s], pad)
-    _, bwd_a = _build_calls(sa, x2.shape[0], interpret)
-    _, bwd_c = _build_calls(sc, x2.shape[0], interpret)
-    dla = bwd_a(x2, dmup, *leaves_a)
-    dlc = bwd_c(x2, dvp, *leaves_c)
-    dla = tuple(dl.astype(l.dtype) for dl, l in zip(dla, leaves_a))
-    dlc = tuple(dl.astype(l.dtype) for dl, l in zip(dlc, leaves_c))
-    dlog_std = sums[_SUM_DLS : _SUM_DLS + loss.action_dim]
-    return dla, dlog_std, dlc, sums
-
-
-def fused_pair_ppo_grads(
-    spec_a: EncoderSpec,
-    spec_c: EncoderSpec,
-    loss: PPOLossCfg,
-    leaves_a,
-    leaves_c,
-    log_std,
-    x,
-    act,
-    logp_old,
-    adv,
-    v_old,
-    ret,
-    interpret: bool = False,
-):
-    """Direct PPO gradients in TWO launches with no actor recompute:
-
-      1. `_pair_fwd_loss_agrad_kernel` — fwd of both nets + the whole
-         loss-gradient math + the actor's full backward (activations
-         still in VMEM), emitting actor grads, both dv candidates and the
-         stat sums;
-      2. critic-only bwd (recomputes just the critic) once the
-         value-branch select (max of batch means) is resolved outside.
-
-    Returns (dleaves_a, dlog_std_policy_term, dleaves_c, metric sums).
-    `dlog_std` is the POLICY term only — the entropy bonus adds a
-    constant −entropy_coef per dim, left to the caller (which also owns
-    the entropy metric, needing no kernel at all)."""
-    s = x.shape[0]
-    if not interpret:
-        # the combined launch's working set (actor fwd+bwd live at its
-        # peak) caps the row tile below the plain bwd kernels': 512 needs
-        # 17.97 MB (measured), 448 fits the 16 MB scoped-VMEM budget
-        agrad_tile = int(os.environ.get("MUPE_AGRAD_TILE", "448"))
-        # tile_fwd pinned too: pad_tile must equal the launch tile (the
-        # grid is s_padded // tile — a larger pad unit would leave the
-        # row count non-divisible by the tile)
-        spec_a = dataclasses.replace(
-            spec_a, tile=agrad_tile, tile_fwd=agrad_tile
-        )
-        spec_c = dataclasses.replace(
-            spec_c, tile=agrad_tile, tile_fwd=agrad_tile
-        )
-    tile = spec_a.pad_tile
-    xp = _pad_rows(x, tile)
-    agrad_call = _build_pair_loss_agrad_call(
-        spec_a, spec_c, loss, xp.shape[0], interpret
-    )
-    pads = [
-        _pad_rows(a.astype(jnp.float32), tile)
-        for a in (act, logp_old, adv, v_old, ret)
-    ]
-    dv1, dv2, stats, dla = agrad_call(
-        xp, *pads, log_std, tuple(leaves_a), tuple(leaves_c)
-    )
-    sums = jnp.sum(stats, axis=0)  # one fused column reduction in XLA
-    h1 = sums[_SUM_H1] / loss.n_rows
-    h2 = sums[_SUM_H2] / loss.n_rows
-    dv = jnp.where(h1 >= h2, dv1, dv2)
-    # critic-only bwd at the largest fitting tile (one network's
-    # recompute working set allows a bigger tile than the pair's)
-    bwd_tile = spec_c.tile if interpret else _PAIR_BWD_TILE
-    sc = dataclasses.replace(spec_c, tile=bwd_tile, tile_fwd=bwd_tile)
-    xp2 = _pad_rows(x, sc.pad_tile)
-    dvp = _pad_rows(dv[:s], sc.pad_tile)
-    _, bwd_c = _build_calls(sc, xp2.shape[0], interpret)
-    dlc = bwd_c(xp2, dvp, *leaves_c)
-    dla = tuple(
-        dl.astype(l.dtype) for dl, l in zip(dla, leaves_a)
-    )
-    dlc = tuple(
-        dl.astype(l.dtype) for dl, l in zip(dlc, leaves_c)
-    )
-    dlog_std = sums[_SUM_DLS : _SUM_DLS + loss.action_dim]
-    return dla, dlog_std, dlc, sums
-
-
-def _pad_rows(a, tile):
-    s = a.shape[0]
-    pad = (-s) % tile
-    if pad:
-        a = jnp.concatenate([a, jnp.zeros((pad,) + a.shape[1:], a.dtype)], 0)
-    return a
-
-
-def _const_specs(leaves):
-    """Params: full blocks, constant index map → VMEM-resident across grid."""
-    return [
-        pl.BlockSpec(
-            l.shape, lambda i, _shape=l.shape: (0,) * len(_shape),
-            memory_space=pltpu.VMEM,
-        )
-        for l in leaves
-    ]
-
-
-def _row_spec(tile, dim):
-    return pl.BlockSpec((tile, dim), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-
-@functools.lru_cache(maxsize=None)
-def _build_calls(spec: EncoderSpec, s_padded: int, interpret: bool):
-    # Trace-time guard: the grid is s_padded // tile — a non-divisible
-    # row count would silently drop the trailing rows from the launch.
-    assert s_padded % spec.fwd_tile == 0 and s_padded % spec.tile == 0, (
-        f"s_padded={s_padded} not divisible by tile={spec.tile}/"
-        f"fwd_tile={spec.fwd_tile}; pad with pad_tile of the SAME spec"
-    )
-    n_tiles_fwd = s_padded // spec.fwd_tile
-    n_tiles = s_padded // spec.tile
-
-    def fwd(x, *leaves):
-        return pl.pallas_call(
-            functools.partial(_fwd_kernel, spec),
-            grid=(n_tiles_fwd,),
-            in_specs=[_row_spec(spec.fwd_tile, spec.obs_dim)]
-            + _const_specs(leaves),
-            out_specs=_row_spec(spec.fwd_tile, spec.head_dim),
-            out_shape=jax.ShapeDtypeStruct(
-                (s_padded, spec.head_dim), jnp.float32
-            ),
-            interpret=interpret,
-        )(x, *leaves)
-
-    def bwd(x, dout, *leaves):
-        grad_shapes = [
-            jax.ShapeDtypeStruct(l.shape, jnp.float32) for l in leaves
-        ]
-        grad_specs = _const_specs(leaves)
-        return pl.pallas_call(
-            functools.partial(_bwd_kernel, spec),
-            grid=(n_tiles,),
-            in_specs=[
-                _row_spec(spec.tile, spec.obs_dim),
-                _row_spec(spec.tile, spec.head_dim),
-            ]
-            + _const_specs(leaves),
-            out_specs=grad_specs,
-            out_shape=grad_shapes,
-            interpret=interpret,
-        )(x, dout, *leaves)
-
-    return fwd, bwd
-
-
-@functools.lru_cache(maxsize=None)
-def _build_pair_calls(
-    spec_a: EncoderSpec, spec_b: EncoderSpec, s_padded: int, interpret: bool
-):
-    assert spec_a.groups == spec_b.groups and spec_a.tile == spec_b.tile
-    tile = spec_a.tile
-    ftile = spec_a.fwd_tile
-    assert s_padded % tile == 0 and s_padded % ftile == 0, (
-        f"s_padded={s_padded} not divisible by tile={tile}/fwd_tile={ftile}"
-    )
-    n_tiles = s_padded // tile
-    n_tiles_fwd = s_padded // ftile
-
-    def fwd(x, leaves_a, leaves_b):
-        leaves = list(leaves_a) + list(leaves_b)
-        return pl.pallas_call(
-            functools.partial(_pair_fwd_kernel, spec_a, spec_b),
-            grid=(n_tiles_fwd,),
-            in_specs=[_row_spec(ftile, spec_a.obs_dim)] + _const_specs(leaves),
-            out_specs=[
-                _row_spec(ftile, spec_a.head_dim),
-                _row_spec(ftile, spec_b.head_dim),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((s_padded, spec_a.head_dim), jnp.float32),
-                jax.ShapeDtypeStruct((s_padded, spec_b.head_dim), jnp.float32),
-            ],
-            interpret=interpret,
-        )(x, *leaves)
-
-    def bwd(x, dout_a, dout_b, leaves_a, leaves_b):
-        leaves = list(leaves_a) + list(leaves_b)
-        grad_shapes = [
-            jax.ShapeDtypeStruct(l.shape, jnp.float32) for l in leaves
-        ]
-        return pl.pallas_call(
-            functools.partial(_pair_bwd_kernel, spec_a, spec_b),
-            grid=(n_tiles,),
-            in_specs=[
-                _row_spec(tile, spec_a.obs_dim),
-                _row_spec(tile, spec_a.head_dim),
-                _row_spec(tile, spec_b.head_dim),
-            ]
-            + _const_specs(leaves),
-            out_specs=_const_specs(leaves),
-            out_shape=grad_shapes,
-            interpret=interpret,
-        )(x, dout_a, dout_b, *leaves)
-
-    return fwd, bwd
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-# ------------------------------------------------------------ single network
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def fused_encoder_head(spec: EncoderSpec, leaves, obs_packed):
-    """[S, obs_dim] → [S, head_dim] through the fused encoder+head.
-
-    Differentiable wrt `leaves` (canonical tuple, see `extract_leaves`);
-    the cotangent for `obs_packed` is zero (observations are data).
-    On non-TPU backends this falls back to the pure-jnp reference (same
-    math, shardable under pjit) rather than interpreter-mode kernels.
-    """
-    if not _on_tpu():
-        return reference_apply(spec, leaves, obs_packed)
-    s = obs_packed.shape[0]
-    x = _pad_rows(obs_packed, spec.pad_tile)
-    fwd, _ = _build_calls(spec, x.shape[0], False)
-    return fwd(x, *leaves)[:s]
-
-
-def _vjp_fwd(spec, leaves, obs_packed):
-    return fused_encoder_head(spec, leaves, obs_packed), (leaves, obs_packed)
-
-
-def _vjp_bwd(spec, resids, dout):
-    leaves, obs_packed = resids
-    if not _on_tpu():
-        _, pullback = jax.vjp(
-            lambda lv: reference_apply(spec, lv, obs_packed), leaves
-        )
-        return pullback(dout)[0], jnp.zeros_like(obs_packed)
-    s = obs_packed.shape[0]
-    x = _pad_rows(obs_packed, spec.pad_tile)
-    d = _pad_rows(dout.astype(jnp.float32), spec.pad_tile)
-    _, bwd = _build_calls(spec, x.shape[0], False)
-    dleaves = bwd(x, d, *leaves)
-    dleaves = tuple(
-        dl.astype(l.dtype) for dl, l in zip(dleaves, leaves)
-    )
-    return dleaves, jnp.zeros_like(obs_packed)
-
-
-fused_encoder_head.defvjp(_vjp_fwd, _vjp_bwd)
-
-
-# ------------------------------------------------------------- network pair
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def fused_pair_encoder_head(
-    spec_a: EncoderSpec, spec_b: EncoderSpec, leaves_a, leaves_b, obs_packed
-):
-    """Two encoder+head networks over the same rows in ONE kernel per
-    direction — the actor+critic update path.  Returns (out_a, out_b)."""
-    if not _on_tpu():
-        return (
-            reference_apply(spec_a, leaves_a, obs_packed),
-            reference_apply(spec_b, leaves_b, obs_packed),
-        )
-    s = obs_packed.shape[0]
-    # pad_tile (= max(tile, fwd_tile)): the fwd grid is s_padded // fwd_tile,
-    # so padding to the smaller `tile` can leave the tail rows unwritten.
-    x = _pad_rows(obs_packed, spec_a.pad_tile)
-    fwd, _ = _build_pair_calls(spec_a, spec_b, x.shape[0], False)
-    out_a, out_b = fwd(x, tuple(leaves_a), tuple(leaves_b))
-    return out_a[:s], out_b[:s]
-
-
-def _pair_vjp_fwd(spec_a, spec_b, leaves_a, leaves_b, obs_packed):
-    out = fused_pair_encoder_head(spec_a, spec_b, leaves_a, leaves_b, obs_packed)
-    return out, (leaves_a, leaves_b, obs_packed)
-
-
-# Pair-bwd launch strategy.  "split" (default): TWO single-network bwd
-# launches at tile `MUPE_PAIR_BWD_TILE` (640 — the largest fitting the
-# 16 MB scoped-VMEM budget; a single network at 1024 needs 25.5 MB) —
-# 25% bigger tiles than the pair kernel can afford, at the cost of
-# loading x twice (~10 MB, negligible) and losing cross-network
-# instruction overlap.  Measured e2e: 900.4K (split@640) vs 867.2K
-# (pair@512) vs 863.7K (pair@576) env-steps/s.  "pair": ONE kernel
-# recomputing and backpropagating both networks at `tile`.
-_PAIR_BWD_MODE = os.environ.get("MUPE_PAIR_BWD", "split")
-# 1024 needs a ~26.5 MB scoped-VMEM stack — admitted by the per-role
-# compiler option (utils/jit.py UPDATE_VMEM_KIB); measured e2e 890K
-# env-steps/s vs 873K @640, 880K @1536, OOM @2048 (r5 sweeps 1-3)
-_PAIR_BWD_TILE = int(os.environ.get("MUPE_PAIR_BWD_TILE", "1024"))
-
-
-def _split_bwd_spec(spec: EncoderSpec, tile: int = None) -> EncoderSpec:
-    """Spec for one single-network bwd launch of the split pair path.
-
-    BOTH tile and tile_fwd are pinned so pad_tile == tile: the bwd grid
-    is s_padded // tile, and padding to a larger fwd tile (1536) while
-    launching at the bwd tile (640) would silently drop the trailing
-    real rows from the parameter gradients whenever s_padded is not a
-    multiple of lcm(tile, fwd_tile)."""
-    t = _PAIR_BWD_TILE if tile is None else tile
-    return dataclasses.replace(spec, tile=t, tile_fwd=t)
-
-
-def _pair_vjp_bwd(spec_a, spec_b, resids, douts):
-    leaves_a, leaves_b, obs_packed = resids
-    dout_a, dout_b = douts
-    if not _on_tpu():
-        _, pba = jax.vjp(
-            lambda lv: reference_apply(spec_a, lv, obs_packed), leaves_a
-        )
-        _, pbb = jax.vjp(
-            lambda lv: reference_apply(spec_b, lv, obs_packed), leaves_b
-        )
-        return pba(dout_a)[0], pbb(dout_b)[0], jnp.zeros_like(obs_packed)
-    s = obs_packed.shape[0]
-    if _PAIR_BWD_MODE == "split":
-        sa = _split_bwd_spec(spec_a)
-        sb = _split_bwd_spec(spec_b)
-        pad = max(sa.pad_tile, sb.pad_tile)
-        x = _pad_rows(obs_packed, pad)
-        da = _pad_rows(dout_a.astype(jnp.float32), pad)
-        db = _pad_rows(dout_b.astype(jnp.float32), pad)
-        _, bwd_a = _build_calls(sa, x.shape[0], False)
-        _, bwd_b = _build_calls(sb, x.shape[0], False)
-        dla = bwd_a(x, da, *leaves_a)
-        dlb = bwd_b(x, db, *leaves_b)
-        dla = tuple(dl.astype(l.dtype) for dl, l in zip(dla, leaves_a))
-        dlb = tuple(dl.astype(l.dtype) for dl, l in zip(dlb, leaves_b))
-        return dla, dlb, jnp.zeros_like(obs_packed)
-    x = _pad_rows(obs_packed, spec_a.pad_tile)
-    da = _pad_rows(dout_a.astype(jnp.float32), spec_a.pad_tile)
-    db = _pad_rows(dout_b.astype(jnp.float32), spec_a.pad_tile)
-    _, bwd = _build_pair_calls(spec_a, spec_b, x.shape[0], False)
-    dleaves = bwd(x, da, db, tuple(leaves_a), tuple(leaves_b))
-    na = spec_a.n_leaves
-    dla = tuple(
-        dl.astype(l.dtype) for dl, l in zip(dleaves[:na], leaves_a)
-    )
-    dlb = tuple(
-        dl.astype(l.dtype) for dl, l in zip(dleaves[na:], leaves_b)
-    )
-    return dla, dlb, jnp.zeros_like(obs_packed)
-
-
-fused_pair_encoder_head.defvjp(_pair_vjp_fwd, _pair_vjp_bwd)

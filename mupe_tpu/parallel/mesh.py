@@ -2,11 +2,11 @@
 
 The reference's only parallelism is vectorized arenas on one GPU
 (SURVEY §2.6; cfg/base/env_base.yaml num_envs=4096).  Here the same arena
-axis is sharded across a `jax.sharding.Mesh` of TPU chips/hosts: every leaf
-of the env/rollout state carries the env axis first, policy/optimizer state
-is replicated, and XLA's SPMD partitioner inserts the collectives (gradient
-`psum` across the data axis, gathers for global minibatch shuffling) over
-ICI/DCN.  The networks are tiny (≤256 hidden), so tensor/pipeline/sequence
+axis is sharded across a 1-D `jax.sharding.Mesh` of devices (GPUs of one
+host, or of several hosts under `jax.distributed`): every leaf of the
+env/rollout state carries the env axis first, policy/optimizer state is
+replicated, and XLA's SPMD partitioner inserts the collectives (gradient
+all-reduces across the data axis, gathers for global minibatch shuffling).  The networks are tiny (≤256 hidden), so tensor/pipeline/sequence
 parallelism is intentionally out of scope — the env/batch axis is the only
 sharded dimension, exactly mirroring (and scaling out) the reference.
 """
@@ -16,8 +16,7 @@ import os
 from typing import Any, Optional, Sequence
 
 import jax
-import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import AxisType, Mesh, NamedSharding, PartitionSpec as P
 
 ENV_AXIS = "env"
 
@@ -30,18 +29,15 @@ def init_distributed(
     """Join the multi-host JAX runtime (SURVEY §5.8: the reference has no
     distributed backend; here multi-host = `jax.distributed` + DCN).
 
-    Arguments default to the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID), which
-    TPU pod runtimes set automatically.  A single-process run (no
+    Arguments default to the env vars JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID.  A single-process run (no
     coordinator configured) is a no-op.  Returns True iff the distributed
     runtime was (or already is) initialized.
     """
-    from jax._src import distributed as _dist
-
-    # NB: probe the distributed client directly — jax.process_count()
-    # initializes the XLA backend, after which initialize() is illegal
-    if _dist.global_state.client is not None:
-        return True  # already initialized
+    # NB: not jax.process_count() — it initializes the XLA backend, after
+    # which initialize() is illegal
+    if jax.distributed.is_initialized():
+        return True
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
     )
@@ -60,24 +56,17 @@ def init_distributed(
 
 
 def make_mesh(devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
-    """1-D data mesh over all (or the given) devices, ICI-topology-ordered.
+    """1-D data mesh over all (or the given) devices, in device order.
 
-    Multi-host note: `jax.devices()` is the *global* device list, so the
-    same 1-D env mesh spans hosts; gradient reductions for the replicated
-    learner ride ICI within a slice and DCN across slices (the SPMD
-    partitioner inserts them — no NCCL-style backend code, per SURVEY §2.6).
-    """
-    if devices is None:
-        devices = jax.devices()
-        if len(devices) > 1:
-            from jax.experimental import mesh_utils
-
-            try:
-                arr = mesh_utils.create_device_mesh((len(devices),))
-                return Mesh(arr, (ENV_AXIS,))
-            except Exception:  # non-uniform topology: fall back to flat order
-                pass
-    return Mesh(np.asarray(list(devices)), (ENV_AXIS,))
+    The cards of one host are joined all to all (NVLink), so the order of
+    the devices on the env axis does not matter.  `jax.devices()` is the
+    *global* device list, so under `jax.distributed` the same 1-D env mesh
+    spans hosts; the SPMD partitioner inserts the gradient reductions for
+    the replicated learner (SURVEY §2.6)."""
+    devices = list(jax.devices() if devices is None else devices)
+    return jax.make_mesh(
+        (len(devices),), (ENV_AXIS,), (AxisType.Auto,), devices=devices
+    )
 
 
 def local_env_slice(num_envs: int) -> slice:

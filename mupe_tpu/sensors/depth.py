@@ -1,9 +1,9 @@
 """Analytic depth camera: batched ray-cast renderer for drone-mounted views.
 
-TPU-native counterpart of the reference camera sensor
+JAX counterpart of the reference camera sensor
 (omni_drones/sensors/camera.py:40-210, sensors/config.py:29-120), which
 attaches an omni.replicator RTX annotator to a USD prim and is used for
-depth/rgb visualization.  On TPU there is no RTX renderer; the scene is
+depth/rgb visualization.  There is no RTX renderer here; the scene is
 analytic (ground plane, arena cylinder wall + ceiling, obstacle cylinders,
 target sphere), so an exact closed-form ray cast produces the same depth
 channel the reference exposes (`data_types=["distance_to_camera"]`) as one

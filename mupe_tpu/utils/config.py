@@ -13,7 +13,6 @@ import json
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Type, TypeVar
 
-import yaml
 
 T = TypeVar("T")
 
@@ -97,6 +96,8 @@ def apply_overrides(cfg: T, overrides: Dict[str, Any]) -> T:
 
 def load_yaml_overrides(path: str | Path) -> Dict[str, Dict[str, Any]]:
     """Load a YAML file of {section: {field: value}} overlays."""
+    import yaml
+
     with open(path) as f:
         data = yaml.safe_load(f) or {}
     return data

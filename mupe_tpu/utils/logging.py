@@ -2,7 +2,7 @@
 
 Counterpart of the reference's wandb plumbing (omni_drones/utils/wandb.py,
 scripts/train.py:294-300): metric dicts per iteration, flattened config
-upload, resume-by-run-id.  CSV is the always-on sink so headless TPU runs
+upload, resume-by-run-id.  CSV is the always-on sink so headless runs
 remain inspectable without network egress.
 """
 from __future__ import annotations

@@ -17,6 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.math import matmul
+
 
 def lemniscate(t: jnp.ndarray, c: float = 0.0) -> jnp.ndarray:
     """Figure-eight reference (envs/utils/__init__.py lemniscate): the
@@ -75,7 +77,7 @@ def bspline_eval(
         return n[:k]
 
     b = jax.vmap(basis)(t)  # [T, K]
-    return b @ control_points
+    return matmul(b, control_points)
 
 
 def poisson_disk_sample(

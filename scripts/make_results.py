@@ -84,7 +84,7 @@ def main():
     imgdir = Path(args.imgdir)
     imgdir.mkdir(parents=True, exist_ok=True)
     lines = [
-        "# RESULTS — measured on one TPU chip",
+        "# RESULTS — learning results of the training runs",
         "",
         "Generated by `scripts/make_results.py` from committed run logs",
         "(`runs/<name>/metrics.csv`).  Reference protocol: HideAndSeek",

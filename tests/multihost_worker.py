@@ -10,13 +10,17 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+pid, nproc, port, run_dir = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+)
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+# two processes compile the same programs at once: keep them off the
+# shared persistent cache
+jax.config.update("jax_enable_compilation_cache", False)
 jax.distributed.initialize(
     coordinator_address=f"localhost:{port}", num_processes=nproc, process_id=pid
 )
@@ -32,7 +36,7 @@ metrics = train(
         "save_interval=-1",
         "algo.train_every=8",
         "algo.num_minibatches=2",
-        "run_dir=/tmp/mupe_mh_test",
+        f"run_dir={run_dir}",
         "run_name=shared",
     ],
     default_task="Hover",

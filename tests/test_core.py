@@ -81,3 +81,56 @@ def test_quat_axis_matches_matrix_column(axis):
     q = random_quat(rng, (5,))
     r = quaternion_to_rotation_matrix(q)
     np.testing.assert_allclose(quat_axis(q, axis), r[..., :, axis], atol=1e-5)
+
+
+# ------------------------------------------------------------ core.struct
+def _point_cls():
+    from mupe_tpu.core import struct
+
+    @struct.dataclass
+    class Point:
+        x: jnp.ndarray
+        y: jnp.ndarray = None
+        tag: str = struct.field(pytree_node=False, default="p")
+
+    return Point
+
+
+def test_struct_replace_returns_new_frozen_instance():
+    import dataclasses
+
+    point = _point_cls()(x=jnp.ones(2), y=jnp.zeros(2))
+    moved = point.replace(x=jnp.full(2, 3.0))
+    np.testing.assert_array_equal(np.asarray(point.x), 1.0)
+    np.testing.assert_array_equal(np.asarray(moved.x), 3.0)
+    assert moved.tag == "p" and moved.y is point.y
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        point.x = jnp.zeros(2)
+
+
+def test_struct_static_field_is_treedef_metadata():
+    import jax
+
+    Point = _point_cls()
+    a, b = Point(x=jnp.ones(2), tag="a"), Point(x=jnp.ones(2), tag="b")
+    # only array fields are leaves (None is an empty subtree)
+    assert len(jax.tree_util.tree_leaves(a)) == 1
+    assert jax.tree_util.tree_structure(a) != jax.tree_util.tree_structure(b)
+    # the static value reaches jitted code as a Python constant
+    f = jax.jit(lambda p: p.x * (2.0 if p.tag == "b" else 1.0))
+    np.testing.assert_array_equal(np.asarray(f(b)), 2.0)
+    np.testing.assert_array_equal(np.asarray(f(a)), 1.0)
+
+
+def test_struct_pytree_round_trip_through_jit_and_tree_map():
+    import jax
+
+    Point = _point_cls()
+    p = Point(x=jnp.arange(3.0), y=jnp.ones(3), tag="z")
+    leaves, treedef = jax.tree_util.tree_flatten(p)
+    q = jax.tree_util.tree_unflatten(treedef, leaves)
+    assert type(q) is Point and q.tag == "z"
+    r = jax.jit(lambda t: jax.tree_util.tree_map(lambda v: v + 1.0, t))(p)
+    assert type(r) is Point and r.tag == "z"
+    np.testing.assert_array_equal(np.asarray(r.x), [1.0, 2.0, 3.0])
+    np.testing.assert_array_equal(np.asarray(r.y), 2.0)

@@ -3,6 +3,7 @@ MAPPO shapes, and the TP window supervision."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mupe_tpu.learning import ValueNorm1, ValueNorm2, compute_gae
 from mupe_tpu.learning.modules.distributions import DiagGaussianHead, Gaussian
@@ -221,19 +222,23 @@ def test_encoder_dict_order_invariance():
 
 
 def test_tp_net_fused_input_proj_matches_rnn_path():
-    """The fused-input-projection LSTM (one [B*T,F]x[F,4H] matmul + scan)
-    must reproduce nn.RNN(OptimizedLSTMCell) on the SAME param tree."""
+    """The functional TPNet (one [B*T,F]x[F,4H] input projection + unrolled
+    recurrence) must reproduce flax's nn.RNN(OptimizedLSTMCell) on the SAME
+    param tree."""
+    pytest.importorskip("flax")
+    import flax_witness
     from mupe_tpu.learning.tp_net import TPNet
 
-    ref = TPNet(output_dim=15, fused_input_proj=False)
-    fast = TPNet(output_dim=15, fused_input_proj=True)
+    ref = flax_witness.TPNet(output_dim=15)
+    fast = TPNet(output_dim=15)
     x = jax.random.normal(jax.random.PRNGKey(0), (32, 10, 16))
     p_ref = ref.init(jax.random.PRNGKey(1), x)
     p_fast = fast.init(jax.random.PRNGKey(1), x)
-    # identical tree structure (checkpoint compatibility)
-    assert jax.tree_util.tree_structure(p_ref) == jax.tree_util.tree_structure(p_fast)
+    # identical tree structure and shapes (checkpoint compatibility)
+    shapes = lambda t: jax.tree_util.tree_map(jnp.shape, t)
+    assert shapes(p_ref) == shapes(p_fast)
     y_ref = ref.apply(p_ref, x)
-    y_fast = fast.apply(p_ref, x)  # NOTE: reference params through fast path
+    y_fast = fast.apply(p_ref, x)  # NOTE: flax params through the fast path
     assert float(jnp.max(jnp.abs(y_ref - y_fast))) < 2e-2  # bf16 noise
     # gradients flow through every leaf on the fast path
     g = jax.grad(lambda p: jnp.sum(jnp.square(fast.apply(p, x))))(p_ref)

@@ -1,6 +1,6 @@
 """Multi-host training path: 2-process fake-DCN over localhost CPU.
 
-The reference has no distributed backend (SURVEY §2.6); the TPU build's
+The reference has no distributed backend (SURVEY §2.6); the
 multi-host story is `jax.distributed` + a global env mesh.  This test runs
 the REAL `harness.train` entry point in two coordinated processes (gloo
 collectives over localhost) and checks both complete with identical,
@@ -25,7 +25,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_train():
+def test_two_process_train(tmp_path):
     # NOTE: no @pytest.mark.timeout — pytest-timeout is not installed and
     # the mark is silently ignored (round-4 advisor).  The watchdog is
     # hand-rolled: communicate() bounds each wait and the finally block
@@ -34,7 +34,7 @@ def test_two_process_train():
     port = _free_port()
     procs = [
         subprocess.Popen(
-            [sys.executable, str(WORKER), str(pid), "2", str(port)],
+            [sys.executable, str(WORKER), str(pid), "2", str(port), str(tmp_path)],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,

@@ -1,4 +1,4 @@
-"""Native C++ easy-task generator + Pallas kernel (interpret mode) tests."""
+"""Native C++ easy-task generator and farthest-point-sampling tests."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,44 +35,33 @@ def test_native_matches_python_semantics():
         assert (d <= 2).all()
 
 
-def test_fps_pallas_interpret_matches_reference(monkeypatch):
-    from jax.experimental import pallas as pl
+def _fps_numpy(points, k, valid):
+    """Brute-force farthest-point sampling: start at index 0, then k−1
+    times take the valid point farthest from everything selected so far."""
+    sel = [0]
+    for _ in range(1, k):
+        d = np.min(
+            [np.sum((points - points[i]) ** 2, axis=-1) for i in sel], axis=0
+        )
+        sel.append(int(np.argmax(np.where(valid, d, -np.inf))))
+    return np.asarray(sel)
 
-    import mupe_tpu.ops.fps_pallas as fpsp
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_matches_numpy_reference(masked):
     from mupe_tpu.ops.fps import farthest_point_sampling
 
-    orig = pl.pallas_call
-
-    def interp(*a, **kw):
-        kw["interpret"] = True
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp)
     rng = np.random.default_rng(3)
-    pts = jnp.asarray(rng.normal(size=(128, 16)).astype(np.float32))
-    ref = np.asarray(farthest_point_sampling(pts, 17))
-    got = np.asarray(fpsp.farthest_point_sampling_pallas.__wrapped__(pts, 17))
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_fps_pallas_with_valid_mask(monkeypatch):
-    from jax.experimental import pallas as pl
-
-    import mupe_tpu.ops.fps_pallas as fpsp
-
-    orig = pl.pallas_call
-
-    def interp(*a, **kw):
-        kw["interpret"] = True
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(pl, "pallas_call", interp)
-    pts = jnp.asarray(np.linspace(0, 1, 32)[:, None].astype(np.float32))
-    valid = jnp.arange(32) < 16
-    idx = np.asarray(
-        fpsp.farthest_point_sampling_pallas.__wrapped__(pts, 8, valid=valid)
+    pts = rng.normal(size=(128, 16)).astype(np.float32)
+    valid = rng.uniform(size=128) < 0.5 if masked else np.ones(128, bool)
+    valid[0] = True
+    got = np.asarray(
+        jax.jit(farthest_point_sampling, static_argnums=1)(
+            jnp.asarray(pts), 17, jnp.asarray(valid)
+        )
     )
-    assert (idx < 16).all()
+    np.testing.assert_array_equal(got, _fps_numpy(pts, 17, valid))
+    assert valid[got].all()
 
 
 def test_easy_cases_bootstrap_under_jitted_reset():

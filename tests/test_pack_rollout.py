@@ -1,6 +1,6 @@
 """Packed-rollout path (cfg.pack_rollout): the scan emits minibatch-ready
-wide rows; train_op fills the reserved GAE lanes in place and feeds lane
-slices straight to the kernels.  Must be bit-compatible with the legacy
+wide rows; train_op fills the reserved GAE columns and feeds column
+slices straight to the encoder.  Must be bit-compatible with the legacy
 collect-then-concat path (same RNG streams, same math on the same rows)."""
 import jax
 import jax.numpy as jnp
@@ -103,8 +103,8 @@ def test_pack_meta_layout_roundtrip():
     meta = compute_pack_meta(obs, n, 4)
     rows = pack_rollout_row(meta, obs, action, logp, value)
     assert rows.shape == (e, meta.total)
-    # obs lanes reshape to the exact pack_obs layout
-    spec = EncoderSpec(groups=meta.groups, head_dim=4)
+    # obs columns reshape to the exact pack_obs layout
+    spec = EncoderSpec(groups=meta.groups)
     x_ref, _ = pack_obs(spec, obs, list(meta.names))
     x_pack = rows[:, : meta.obs_cols].reshape(e * n, meta.obs_dim)
     np.testing.assert_allclose(np.asarray(x_pack), np.asarray(x_ref), atol=0)
@@ -112,5 +112,5 @@ def test_pack_meta_layout_roundtrip():
         np.asarray(rows[:, meta.off_logp : meta.off_logp + n]),
         np.asarray(logp.reshape(e, n)), atol=0,
     )
-    # reserved GAE lanes zeroed
+    # reserved GAE columns zeroed
     assert float(jnp.abs(rows[:, meta.off_adv :]).max()) == 0.0

@@ -89,7 +89,7 @@ def test_ppo_vision_from_harness():
 
 
 def test_mobilenet_v3_small_shapes_and_grads():
-    """The TPU-native MobileNetV3-Small backbone (reference
+    """The JAX MobileNetV3-Small backbone (reference
     networks.py:371-428): 576-dim features from 1- or 3-channel frames,
     gradients flow to every block."""
     from mupe_tpu.learning.modules.mobilenet import MobileNetV3
